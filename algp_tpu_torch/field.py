@@ -1,0 +1,171 @@
+"""Field environment — row-structured grid with noisy sensing (the
+counterpart of the synthetic, single-trait part of algp_tpu.field).
+
+The latent truth is a GP draw made on the device: the Gram of the whole
+grid from the CUDA kernel of `ops.gram`, an adaptive-jitter Cholesky, and
+standard-normal draws from a `torch.Generator` seeded with `cfg.seed`
+(those draws cannot equal the reference's `jax.random` ones, so the two
+packages' truths differ).  Everything else is host code, and the numpy
+generator `default_rng(cfg.seed)` is called in the reference's order, so
+the held-out split and the `collect` noise equal the reference's.
+
+Not ported yet: phenotype tables, per-point features and feature warps,
+multiple traits, the FITC (`synth_inducing`) truth and `calibration`;
+see ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from algp_tpu_torch.config import FieldConfig
+from algp_tpu_torch.ops import linalg as la
+from algp_tpu_torch.ops.gram import gram_kernel
+from algp_tpu_torch.ops.kernels import KernelSpec
+
+MODALITIES = ("precise", "cheap")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"FieldEnv: {what} is not ported to algp_tpu_torch yet; see ROADMAP.md"
+    )
+
+
+@dataclasses.dataclass
+class Sample:
+    """A batch of collected measurements."""
+
+    indices: np.ndarray  # (k,) grid indices
+    y: np.ndarray  # (k,) noisy measurements
+    noise_scale: np.ndarray  # (k,) variance multipliers vs base noise
+
+
+class FieldEnv:
+    """Row-structured field grid with a synthetic GP ground truth.
+
+    Geometry: `num_rows` crop rows (y axis), each with `num_cols` ranges
+    (x axis).  Grid index i ↔ (row, col) = divmod(i, num_cols); the map
+    pose of a point is (col·col_spacing, row·row_spacing).  `X` (n, 2)
+    f32 lives on `device`; the truth `f` is a f64 host array and `f_dev`
+    its f32 device copy.
+    """
+
+    def __init__(self, cfg: FieldConfig, spec: Optional[KernelSpec] = None,
+                 device="cpu"):
+        if not 0.0 <= cfg.trait_corr < 1.0:
+            raise ValueError(
+                f"trait_corr must be in [0, 1) (got {cfg.trait_corr})"
+            )
+        if not 0.0 < cfg.trait_obs_frac <= 1.0:
+            raise ValueError(
+                f"trait_obs_frac must be in (0, 1] (got {cfg.trait_obs_frac})"
+            )
+        if cfg.data_path is not None:
+            raise _not_ported("a phenotype table (data_path)")
+        if cfg.num_features:
+            raise _not_ported("a field with features (num_features)")
+        if cfg.feature_warp != "none":
+            raise _not_ported("a feature warp")
+        if cfg.num_traits > 1:
+            raise _not_ported("a multi-trait field (num_traits)")
+        if cfg.synth_inducing:
+            raise _not_ported("the FITC truth (synth_inducing)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.num_rows = cfg.num_rows
+        self.num_cols = cfg.num_cols
+        self.n = cfg.num_rows * cfg.num_cols
+        self._rng = np.random.default_rng(cfg.seed)
+
+        rows, cols = np.divmod(np.arange(self.n), cfg.num_cols)
+        xy = np.stack(
+            [cols * cfg.col_spacing, rows * cfg.row_spacing], axis=1
+        ).astype(np.float32)
+        self.X = torch.as_tensor(xy, device=self.device)
+        self.f_dev = self._synthesize(spec)
+        self.f = self.f_dev.double().cpu().numpy()
+        if not np.isfinite(self.f).all():
+            # safe_cholesky exhausts its jitter ladder silently; a NaN
+            # ground truth would poison every downstream metric
+            raise ValueError(
+                "synthetic field covariance failed to factor — kernel "
+                f"config is pathological (ls_spatial={cfg.true_ls_spatial}, "
+                f"outputscale={cfg.true_outputscale}, n={self.n})"
+            )
+        self.observed_mask = np.ones(self.n, bool)
+        # held-out split for RMSE evaluation
+        observed = np.flatnonzero(self.observed_mask)
+        test = self._rng.permutation(observed)[: max(1, len(observed) // 5)]
+        self.test_mask = np.zeros(self.n, bool)
+        self.test_mask[test] = True
+
+    def _synthesize(self, spec: Optional[KernelSpec]) -> torch.Tensor:
+        """Draw the latent field (n,) f32 on the device from a GP with the
+        config's true kernel."""
+        cfg = self.cfg
+        if spec is None:
+            spec = KernelSpec("rbf", "rbf", ds=2, df=0)
+        if spec.df:
+            raise _not_ported("a truth kernel with features")
+        params = spec.init_params(
+            ls_spatial=cfg.true_ls_spatial,
+            ls_feature=cfg.true_ls_feature,
+            outputscale=cfg.true_outputscale,
+            noise=1.0,  # unused for sampling
+            device=self.device,
+        )
+        K = gram_kernel(spec, params, self.X, self.X)
+        L, _ = la.safe_cholesky(K, initial_jitter=1e-5)
+        del K
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        z = torch.randn((self.n, 1), generator=gen, device=self.device)
+        return (L @ z)[:, 0]
+
+    # ------------------------------------------------------- index geometry
+
+    def index_to_rowcol(self, i: int) -> tuple[int, int]:
+        return divmod(int(i), self.num_cols)
+
+    def rowcol_to_index(self, row: int, col: int) -> int:
+        return int(row) * self.num_cols + int(col)
+
+    def pose_of(self, i: int) -> tuple[float, float]:
+        r, c = self.index_to_rowcol(i)
+        return c * self.cfg.col_spacing, r * self.cfg.row_spacing
+
+    # ------------------------------------------------------------- sensing
+
+    def noise_std(self, modality: str = "precise") -> float:
+        if modality not in MODALITIES:
+            raise ValueError(f"unknown modality {modality!r}; use {MODALITIES}")
+        mult = 1.0 if modality == "precise" else self.cfg.cheap_noise_mult
+        return self.cfg.noise_std * mult
+
+    def collect(self, indices, modality: str = "precise") -> Sample:
+        """Simulate noisy measurements at grid indices.  `noise_scale` is
+        the variance multiplier vs the precise modality."""
+        idx = np.asarray(indices, np.int64).ravel()
+        std = self.noise_std(modality)
+        y = self.f[idx] + std * self._rng.standard_normal(idx.shape)
+        scale = np.full(
+            idx.shape,
+            1.0 if modality == "precise" else self.cfg.cheap_noise_mult**2,
+            np.float64,
+        )
+        return Sample(indices=idx, y=y, noise_scale=scale)
+
+    # ------------------------------------------------------------- metrics
+
+    def rmse(self, mean, test_only: bool = False) -> float:
+        """RMSE of a posterior mean field vs the latent truth (all cells,
+        or only the held-out split with `test_only`)."""
+        if isinstance(mean, torch.Tensor):
+            mean = mean.detach().cpu().numpy()
+        m = np.asarray(mean, np.float64)
+        mask = self.test_mask if test_only else self.observed_mask
+        return float(np.sqrt(np.mean((m[mask] - self.f[mask]) ** 2)))

@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels of `algp_tpu_torch/csrc`.
+
+All `csrc/*.cu` files are compiled at first use by nvcc into one shared
+library with a plain C interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+
+The library goes to `build/algp_tpu_torch/<hash>/` at the repository
+root (git-ignored), keyed by a hash of the sources and the flags, so an
+edited kernel rebuilds and an unchanged one loads in milliseconds.  A
+missing nvcc or a failed build raises with the compiler's output: there
+is no fallback on the CUDA path.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "algp_tpu_torch"
+LIB_NAME = "libalgp_tpu_kernels.so"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # register / shared-memory / spill report, kept in build.log
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# C signature of every exported function: (restype, argtypes)
+_SIGNATURES = {
+    # x1s, x2s, x1f, x2f, scale, out, n1, n2, ds, df, sk, fk, stream
+    "algp_gram": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # W, j, partial, out, n, stream
+    "algp_wtw_column": (_I, [_P, _P, _P, _P, _I, _P]),
+    "algp_wtw_splits": (_I, [_I]),
+    "algp_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused the sources; carries its output."""
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise BuildError(
+        "nvcc not found (neither on PATH nor under CUDA_HOME); the CUDA "
+        "kernels of algp_tpu_torch are compiled at first use"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet;
+    returns the library's path."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = (
+        f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.2f} s, "
+        f"exit {proc.returncode}\n{proc.stdout}{proc.stderr}"
+    )
+    (out_dir / "build.log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise BuildError(f"nvcc failed building algp_tpu_torch kernels:\n{log}")
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def build_log() -> str:
+    """The compiler output of the current sources' build."""
+    return (BUILD_ROOT / _digest() / "build.log").read_text()
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError)."""
+    if code != 0:
+        msg = library().algp_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    """The handle of PyTorch's current CUDA stream on `device`."""
+    return torch.cuda.current_stream(device).cuda_stream

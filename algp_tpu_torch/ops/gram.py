@@ -1,0 +1,108 @@
+"""Gram matrices from the hand-written CUDA kernel `csrc/gram.cu`
+(the counterpart of algp_tpu.ops.gram, whose Pallas kernels it replaces).
+
+`gram_kernel` launches the kernel for CUDA tensors and runs the plain
+version `gram_reference` (= ops.kernels.gram) for CPU tensors, and for
+nothing else: a CUDA input the kernel does not take raises.  As in the
+reference, the ARD lengthscales are folded into the inputs before the
+kernel runs, and the outputscale reaches it as a one-element device
+tensor, so nothing here waits for the device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from algp_tpu_torch.ops import _cuda
+from algp_tpu_torch.ops.kernels import KERNEL_KINDS, KernelParams, KernelSpec
+from algp_tpu_torch.ops.kernels import gram as gram_reference
+
+#: kernel launches so far (a run can show that it went through the kernel)
+LAUNCHES = 0
+
+_MAX_DIM = 64  # coordinates per segment the kernel's shared tile holds
+
+
+def _scaled(x: torch.Tensor, log_ls: torch.Tensor) -> torch.Tensor:
+    return (x * torch.exp(-log_ls)).contiguous()
+
+
+def _check(spec: KernelSpec, params: KernelParams, x1, x2) -> None:
+    for name, x in (("x1", x1), ("x2", x2)):
+        if x.device != x1.device:
+            raise ValueError(f"gram_kernel: x1 on {x1.device}, x2 on {x2.device}")
+        if x.dtype != torch.float32 or x.dim() != 2:
+            raise ValueError(
+                f"gram_kernel: {name} must be a 2-D float32 tensor, got "
+                f"{x.dtype} {tuple(x.shape)}"
+            )
+        if x.shape[1] != spec.dim:
+            raise ValueError(
+                f"gram_kernel: {name} has {x.shape[1]} columns, spec needs "
+                f"{spec.dim}"
+            )
+    if spec.ds > _MAX_DIM or spec.df > _MAX_DIM:
+        raise ValueError(f"gram_kernel: at most {_MAX_DIM} dims per segment")
+    if params.log_outputscale.dim() != 0:
+        raise ValueError("gram_kernel: batched params are not supported")
+    for p in (params.log_ls_spatial, params.log_ls_feature, params.log_outputscale):
+        if p.device != x1.device or p.dtype != torch.float32:
+            raise ValueError(
+                f"gram_kernel: params must be float32 on {x1.device}, got "
+                f"{p.dtype} on {p.device}"
+            )
+
+
+def gram_kernel(
+    spec: KernelSpec, params: KernelParams, x1: torch.Tensor, x2: torch.Tensor
+) -> torch.Tensor:
+    """Cross-covariance K(X1, X2), (n1, n2) f32: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    global LAUNCHES
+    if x1.device.type == "cpu" and x2.device.type == "cpu":
+        return gram_reference(spec, params, x1, x2)
+    _check(spec, params, x1, x2)
+    if x1.device.type != "cuda":
+        raise ValueError(f"gram_kernel: unsupported device {x1.device}")
+    n1, n2 = x1.shape[0], x2.shape[0]
+    out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
+    if n1 == 0 or n2 == 0:
+        return out
+    x1s = _scaled(x1[:, : spec.ds], params.log_ls_spatial)
+    x2s = _scaled(x2[:, : spec.ds], params.log_ls_spatial)
+    if spec.df:
+        x1f = _scaled(x1[:, spec.ds :], params.log_ls_feature)
+        x2f = _scaled(x2[:, spec.ds :], params.log_ls_feature)
+        fk = KERNEL_KINDS.index(spec.feature_kind)
+    else:
+        x1f = x2f = None
+        fk = -1
+    scale = torch.exp(params.log_outputscale).reshape(1).contiguous()
+    ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())
+    code = _cuda.library().algp_gram(
+        ptr(x1s), ptr(x2s), ptr(x1f), ptr(x2f), ptr(scale), ptr(out),
+        n1, n2, spec.ds, spec.df, KERNEL_KINDS.index(spec.spatial_kind), fk,
+        _cuda.stream_ptr(x1.device),
+    )
+    _cuda.check(code, "gram kernel launch")
+    LAUNCHES += 1
+    return out
+
+
+def gram_kernel_with_noise(
+    spec: KernelSpec,
+    params: KernelParams,
+    x: torch.Tensor,
+    noise_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K(X, X) + diag noise (heteroscedastic via `noise_scale`).  The noise
+    is added to the kernel's output in place, on its diagonal only."""
+    K = gram_kernel(spec, params, x, x)
+    nv = params.noise_var
+    if noise_scale is not None:
+        nv = nv * noise_scale
+    K.diagonal().add_(nv)
+    return K

@@ -1,0 +1,89 @@
+"""Dense linear algebra for the GP stack (the counterpart of the parts of
+algp_tpu.ops.linalg that the main path uses).
+
+Every factorization goes through `torch.linalg.cholesky_ex`: a failed
+factor comes back as NaN, as `jnp.linalg.cholesky` returns it, instead of
+raising — so no loop reads `info` on the host.  Leading batch dimensions
+are supported throughout (the fit's restarts).
+
+Not ported yet: the panel-blocked solves (`blocked_solve_triangular`),
+`solve_triangular_matmul`, `spd_inverse*` and the row-append factor
+growth; see ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _eye_like(K: torch.Tensor) -> torch.Tensor:
+    return torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
+def cholesky(K: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Lower Cholesky factor of SPD `K` (+ optional fixed jitter·I); NaN
+    wherever the factorization failed (per batch element)."""
+    if jitter:
+        K = K + jitter * _eye_like(K)
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def safe_cholesky(
+    K: torch.Tensor,
+    initial_jitter: float = 1e-6,
+    max_tries: int = 5,
+    growth: float = 10.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cholesky with adaptive diagonal jitter.
+
+    Tries the plain factor first; while it is not finite, adds
+    `initial_jitter`·mean(diag K), then ×`growth` each further try, up to
+    `max_tries` times.  Returns (L, jitter_used).  Each try reads one
+    boolean on the host: this is for one-off factors (the field's truth),
+    not for loops.
+    """
+    scale = torch.mean(torch.diagonal(K, dim1=-2, dim2=-1))
+    eye = _eye_like(K)
+    jit = torch.zeros((), dtype=K.dtype, device=K.device)
+    L = cholesky(K)
+    for i in range(max_tries):
+        if bool(torch.isfinite(L).all()):
+            break
+        jit = scale * initial_jitter if i == 0 else jit * growth
+        L = cholesky(K + jit * eye)
+    return L, jit
+
+
+def solve_triangular(
+    L: torch.Tensor, b: torch.Tensor, *, lower: bool = True, trans: bool = False
+) -> torch.Tensor:
+    """Solve op(L) x = b, op the identity or the transpose.  `b` is a
+    vector (one dim fewer than L, batch dims included) or a matrix."""
+    vec = b.dim() == L.dim() - 1
+    if vec:
+        b = b[..., None]
+    A = L.mT if trans else L
+    x = torch.linalg.solve_triangular(A, b, upper=(lower == trans), left=True)
+    return x[..., 0] if vec else x
+
+
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve K x = b given the lower Cholesky factor L of K."""
+    y = solve_triangular(L, b, lower=True, trans=False)
+    return solve_triangular(L, y, lower=True, trans=True)
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """log|K| from its lower Cholesky factor."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
+
+
+def tri_inv(L: torch.Tensor) -> torch.Tensor:
+    """Inverse of a lower-triangular matrix, W = L⁻¹ (exactly zero above
+    the diagonal), row-major.  The reference builds it by recursive
+    bisection over matmuls; here it is one triangular solve against the
+    identity.  The solver returns column-major results, so it solves for
+    Wᵀ = (Lᵀ)⁻¹ and W is that result's transpose view, row-major with no
+    copy (the precision-column kernel reads W by rows)."""
+    return torch.linalg.solve_triangular(L.mT, _eye_like(L), upper=True).mT
