@@ -1,17 +1,19 @@
 """algp_tpu_torch — the PyTorch / CUDA port of algp_tpu.
 
 The JAX package `algp_tpu` is the reference; this package mirrors its
-module names (ops.kernels, ops.gram, ops.updates, ops.linalg, models.gp,
-acquisition, field, config) with PyTorch idiom inside: plain functions on
-tensors with an explicit device, `torch.Generator` in place of
-`jax.random` keys, a written-out batch dimension in place of `vmap` and
-Python loops in place of `lax.scan` / `fori_loop`.
+module names (ops.kernels, ops.gram, ops.updates, ops.linalg, ops.chol,
+models.gp, acquisition, field, planning, episode, cli, config, utils) with
+PyTorch idiom inside: plain functions on tensors with an explicit device,
+`torch.Generator` in place of `jax.random` keys, a written-out batch
+dimension in place of `vmap` and Python loops in place of `lax.scan` /
+`fori_loop`.  Two paths run: `acquisition.fit_and_select` and the
+config-5 episode (`episode.Agent`, `python -m algp_tpu_torch.cli`).  The
+entry points run on the CUDA card unless the caller asks for the CPU.
 
-The two Pallas kernels of the main path (`fit_and_select`) are CUDA C++
-kernels written for Hopper (`csrc/gram.cu`, `csrc/wtw_column.cu`), built
-with nvcc at first use (`ops/_cuda.py`).  A wrapper runs its plain PyTorch
-version for a CPU tensor; for a CUDA tensor it launches its kernel or
-raises.
+The reference's Pallas kernels are CUDA C++ kernels written for Hopper
+(`csrc/gram.cu`, `csrc/wtw_column.cu`, `csrc/chol.cu`), built with nvcc
+at first use (`ops/_cuda.py`).  A wrapper runs its plain PyTorch version
+for a CPU tensor; for a CUDA tensor it launches its kernel or raises.
 
 What is not ported yet raises NotImplementedError and is listed in
 ROADMAP.md.  This package never imports JAX.

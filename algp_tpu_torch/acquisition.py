@@ -16,9 +16,20 @@ indices, and nothing reads a value back until the caller does.  Argmax
 is `torch.argmax` (lowest index wins ties), matching the f64 oracle in
 tests/oracle.py.
 
-Not ported yet: the path-set scoring and the episode steps (config 5),
-`cond_solve`'s explicit-inverse branch for ≥ 2²⁰ candidates, and the
-low-rank planner; see ROADMAP.md.
+The config-5 episode's planning step (`plan_episode_step`) scores a
+padded batch of path sample sets by their joint information: one
+conditioning pass over every candidate gives the posterior metrics and
+the per-set covariance blocks, and for MI the per-set precision blocks
+come from row gathers of the per-refit seed W = L⁻¹ (`WT` materialised
+row-major once per refit) less Schur corrections rebuilt from W for the
+current sampled set.  Per-set factorizations go through `la.cholesky`,
+so a failed one is NaN, as in the reference.  Nothing in a step reads a
+value on the host; the episode reads the step's outputs in one copy.
+
+Not ported yet: `cond_solve`'s explicit-inverse branch for ≥ 2²⁰
+candidates, the low-rank planner, and `plan_path_step` /
+`complement_precision` (only the reference's tests call them); see
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -28,12 +39,29 @@ from typing import Optional
 
 import torch
 
-from algp_tpu_torch.config import FitConfig
+from algp_tpu_torch.config import PATH_UTILITIES, FitConfig
 from algp_tpu_torch.models import gp as gp_mod
 from algp_tpu_torch.ops import linalg as la
 from algp_tpu_torch.ops.gram import gram_kernel_with_noise
 from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
 from algp_tpu_torch.ops.updates import wtw_column
+
+
+#: candidate count from which the reference conditions by an explicit
+#: inverse (its 2²⁰-candidate scale paths); not ported yet
+COND_MATMUL_N = 1 << 20
+
+
+def cond_solve(L: torch.Tensor, B: torch.Tensor, n_global: int) -> torch.Tensor:
+    """L⁻¹ B for the conditioning pass, gated on the unpadded global
+    candidate count as in the reference: the triangular solve below
+    COND_MATMUL_N; the explicit-inverse branch above it is not ported."""
+    if n_global >= COND_MATMUL_N:
+        raise NotImplementedError(
+            f"conditioning over {n_global} ≥ 2^20 candidates (the scale "
+            "paths) is not ported to algp_tpu_torch yet; see ROADMAP.md"
+        )
+    return la.solve_triangular(L, B)
 
 
 @dataclasses.dataclass
@@ -280,7 +308,7 @@ def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
     KA = torch.where(pair, KA, torch.eye(m, dtype=torch.float32, device=dev))
     LA = la.cholesky(KA)
     Kc = gram(spec, params, xA, x) * valid[:, None].to(torch.float32)
-    C = la.solve_triangular(LA, Kc)
+    C = cond_solve(LA, Kc, N)
     d = d0 - torch.sum(C * C, dim=0)
     return C, d, _mask_of(pilot_idx, valid, N), LA
 
@@ -329,3 +357,306 @@ def fit_and_select(
         return_scores=False, n_valid=N,
     )
     return fit_res, sel.truncate(N) if x_pad.shape[0] != N else sel
+
+
+# ---------------------------------------------------------------------------
+# Path-constrained set scoring (config 5)
+# ---------------------------------------------------------------------------
+
+
+def score_candidate_sets(
+    spec: KernelSpec,
+    params: KernelParams,
+    x: torch.Tensor,
+    nv: torch.Tensor,
+    basis: torch.Tensor,
+    sets: torch.Tensor,
+    set_sizes: torch.Tensor,
+    P_implicit: Optional[tuple] = None,
+    *,
+    strategy: str = "entropy",
+) -> torch.Tensor:
+    """Joint utility of padded candidate sets (path sample sets), batched.
+
+    sets      : (S, k_max) int64 candidate indices, padded with 0
+    set_sizes : (S,) true sizes; padded slots are masked to identity
+    basis     : (T, N) conditioning state (`_batch_pilot_condition`)
+    P_implicit: (WT, F, ZT, taken) — the implicit complement precision
+                P = WᵀW − F·ZTᵀ (`implicit_precision_seed` +
+                `implicit_corrections`); per-set blocks come from row
+                gathers of the row-major WT, F and ZT.  `taken` marks
+                sampled candidates, whose implicit rows are exactly zero:
+                they get the inert marker (zero row/col, diag 1)
+
+    entropy:  information gain ½[log det(Cov_S|A + Σ_S) − log det Σ_S]
+    mi:       ½[log det(Cov_S|A + Σ_S) + log det P_SS]
+    Returns (S,) scores.
+    """
+    if strategy == "mi" and P_implicit is None:
+        raise ValueError(
+            "score_candidate_sets(strategy='mi') needs the complement "
+            "precision — implicit_precision_seed + implicit_corrections"
+        )
+    S, k = sets.shape
+    idx_flat = sets.reshape(-1)
+
+    def rows(a):  # (S, k, ...) row gathers
+        return a.index_select(0, idx_flat).reshape(S, k, *a.shape[1:])
+
+    if strategy == "mi":
+        WT, F, ZT, taken = P_implicit
+        Wr = rows(WT)  # (S, k, N)
+        P0 = Wr @ Wr.mT
+        Pblk = _pblk_finish(P0, rows(F), rows(ZT), rows(taken))
+    else:
+        Pblk = None
+    Bs = basis.index_select(1, idx_flat).reshape(basis.shape[0], S, k)
+    return _score_sets_gathered(
+        spec, params, rows(x), Bs.permute(1, 0, 2), rows(nv), set_sizes, Pblk,
+        strategy=strategy, sets=sets,
+    )
+
+
+def _pblk_finish(P0, Fr, Zr, tk):
+    """Apply the gathered Schur corrections and the inert marker for
+    already-deleted entries to per-set prior precision blocks: P0
+    (S, k, k), Fr/Zr (S, k, C), tk (S, k) bool."""
+    k_max = tk.shape[1]
+    Pblk = P0 - Fr @ Zr.mT
+    off = tk[:, :, None] | tk[:, None, :]
+    Pblk = torch.where(off, 0.0, Pblk)
+    eye = torch.eye(k_max, dtype=torch.bool, device=tk.device)[None]
+    return torch.where(eye & tk[:, :, None], 1.0, Pblk)
+
+
+def _score_sets_gathered(
+    spec, params, xs, Bs, nvs, set_sizes, Pblk, *, strategy, sets=None
+):
+    """Joint set utilities from gathered per-set blocks: xs (S, k, dim),
+    Bs (S, T, k) basis columns, nvs (S, k) noise, Pblk (S, k, k) or None.
+
+    With `sets`, a slot that repeats an earlier slot's candidate (a path
+    re-entering a cell) is masked like padding: without the mask its two
+    identical precision rows make the block singular, its Cholesky NaN,
+    and NaN would win the argmax."""
+    S, k_max = xs.shape[:2]
+    dev = xs.device
+    if sets is not None:
+        same = sets[:, :, None] == sets[:, None, :]
+        first = ~torch.tril(same, diagonal=-1).any(dim=2)
+    else:
+        first = torch.ones((S, k_max), dtype=torch.bool, device=dev)
+    mask = (torch.arange(k_max, device=dev)[None, :] < set_sizes[:, None]) & first
+    pair = mask[:, :, None] & mask[:, None, :]
+    Kp = gram(spec, params, xs, xs)  # (S, k, k) prior blocks
+    M1 = Kp - Bs.mT @ Bs + torch.diag_embed(nvs)
+    M1 = torch.where(pair, M1, 0.0)
+    M1 = M1 + torch.diag_embed(torch.where(mask, 1e-6, 1.0))
+    L1 = la.cholesky(M1)
+    h = torch.sum(torch.log(torch.diagonal(L1, dim1=-2, dim2=-1)), -1)
+    if strategy == "entropy":
+        # subtract the noise-entropy floor ⇒ information gain ≥ 0
+        return h - 0.5 * torch.sum(torch.where(mask, torch.log(nvs), 0.0), -1)
+    Pss = torch.where(pair, Pblk, 0.0)
+    Pss = Pss + torch.diag_embed(torch.where(mask, 0.0, 1.0))
+    L2 = la.cholesky(Pss)
+    return h + torch.sum(torch.log(torch.diagonal(L2, dim1=-2, dim2=-1)), -1)
+
+
+#: "per_sample" price gate: paths whose cost per sample exceeds the best
+#: by more than this factor are ineligible
+_PRICE_TOL = 1.25
+
+
+def path_set_argmax(
+    scores: torch.Tensor,
+    set_sizes: torch.Tensor,
+    costs: torch.Tensor,
+    *,
+    path_utility: str = "per_cost",
+    price_tol: float = _PRICE_TOL,
+) -> torch.Tensor:
+    """The winning path set (a device index) from its scores.
+
+    "per_cost": information per unit cost, clamped ≥ 0; "per_sample":
+    among the paths within `price_tol` of the best cost per sample, the
+    most information per sample.  Zero-size (padding) paths never win;
+    the lowest index wins ties."""
+    if path_utility not in PATH_UTILITIES:
+        raise ValueError(
+            f"unknown path_utility {path_utility!r}; use {PATH_UTILITIES}"
+        )
+    pos = torch.clamp_min(scores, 0.0)
+    valid = set_sizes > 0
+    if path_utility == "per_cost":
+        util = pos / (costs + 1e-6)
+        return torch.argmax(torch.where(valid, util, -torch.inf))
+    k = torch.clamp_min(set_sizes.to(torch.float32), 1.0)
+    price = costs / k
+    p_min = torch.min(torch.where(valid, price, torch.inf))
+    eligible = valid & (price <= price_tol * p_min)
+    return torch.argmax(torch.where(eligible, pos / k, -torch.inf))
+
+
+def plan_episode_step(
+    spec: KernelSpec,
+    params: KernelParams,
+    x: torch.Tensor,
+    idx_pad: torch.Tensor,
+    count: int,
+    noise_scale_pad: torch.Tensor,
+    y_pad: torch.Tensor,
+    sets: torch.Tensor,
+    set_sizes: torch.Tensor,
+    costs: torch.Tensor,
+    W: Optional[torch.Tensor] = None,
+    WT: Optional[torch.Tensor] = None,
+    *,
+    strategy: str = "entropy",
+    min_noise: float = 1e-3,
+    nv_mult: float = 1.0,
+    path_utility: str = "per_cost",
+):
+    """One episode step's device work: the posterior mean and variance of
+    the current state over the whole grid, and the next path's choice.
+
+    With LA = chol(K_AA + Σ_A) and basis rows C = L_A⁻¹ K(X_A, X):
+    σ²* = diag K − colsum(C²) and μ* = Cᵀ(L_A⁻¹ y_A), byproducts of the
+    conditioning the plan needs anyway.  Then (mi) the Schur corrections
+    from W for the sampled set, the set scores and `path_set_argmax`.
+
+    Noise: observations carry base · noise_scale_pad with
+    base = max(exp(2·log_noise), min_noise²); future measurements are
+    scored at base · nv_mult.  idx_pad / noise_scale_pad / y_pad: the
+    sampled set padded to a fixed capacity, of which the first `count`
+    slots are real.  W / WT: the per-refit seed (mi only).
+
+    Returns (best, mean, post_var, scores), all on the device.
+    """
+    if strategy == "mi" and (W is None or WT is None):
+        raise ValueError(
+            "plan_episode_step(strategy='mi') needs the implicit-precision "
+            "seed — build (W, WT) with implicit_precision_seed"
+        )
+    dev = x.device
+    cap = idx_pad.shape[0]
+    base = torch.clamp_min(torch.exp(2.0 * params.log_noise), min_noise * min_noise)
+    valid = torch.arange(cap, device=dev) < count
+    pnv = torch.where(valid, base * noise_scale_pad, 1.0)
+    nv = torch.full((x.shape[0],), nv_mult, dtype=torch.float32, device=dev) * base
+    d0 = gram_diag(spec, params, x)
+    C, d, taken, LA = _batch_pilot_condition(
+        spec, params, x, pnv, idx_pad, count, d0
+    )
+    u = la.solve_triangular(LA, torch.where(valid, y_pad, 0.0))
+    mean = C.T @ u
+    if strategy == "mi":
+        F, ZT = implicit_corrections(W, WT, idx_pad, count)
+        scores = score_candidate_sets(
+            spec, params, x, nv, C, sets, set_sizes,
+            P_implicit=(WT, F, ZT, taken), strategy="mi",
+        )
+    else:
+        scores = score_candidate_sets(
+            spec, params, x, nv, C, sets, set_sizes, strategy="entropy",
+        )
+    best = path_set_argmax(scores, set_sizes, costs, path_utility=path_utility)
+    return best, mean, torch.clamp_min(d, 0.0), scores
+
+
+def plan_episode_step_metrics(
+    spec, params, x, idx_pad, count, noise_scale_pad, y_pad, sets, set_sizes,
+    costs, f_true, obs_mask, test_mask, W=None, WT=None, *,
+    strategy="entropy", min_noise=1e-3, nv_mult=1.0, path_utility="per_cost",
+):
+    """`plan_episode_step` with the metrics reduced on the device against
+    the truth (f32 masks): returns (best, rmse, rmse_test, mean_var,
+    var_sites), var_sites the posterior variances at sets[best]."""
+    best, mean, d, _ = plan_episode_step(
+        spec, params, x, idx_pad, count, noise_scale_pad, y_pad, sets,
+        set_sizes, costs, W, WT, strategy=strategy, min_noise=min_noise,
+        nv_mult=nv_mult, path_utility=path_utility,
+    )
+    err = mean - f_true
+    rmse = torch.sqrt(torch.sum(obs_mask * err * err)
+                      / torch.clamp_min(torch.sum(obs_mask), 1.0))
+    rmse_test = torch.sqrt(torch.sum(test_mask * err * err)
+                           / torch.clamp_min(torch.sum(test_mask), 1.0))
+    var_sites = d.index_select(0, sets.index_select(0, best.reshape(1))[0])
+    return best, rmse, rmse_test, torch.mean(d), var_sites
+
+
+# ---------------------------------------------------------------------------
+# The implicit precision of episode-level MI
+# ---------------------------------------------------------------------------
+
+
+def _seed(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    W = la.tri_inv(la.cholesky(K))
+    # WT materialised row-major, once per refit: the per-set blocks are
+    # row gathers of it (W.mT would make each a strided column gather)
+    return W, W.mT.contiguous()
+
+
+def implicit_complement_precision(
+    spec: KernelSpec, params: KernelParams, x: torch.Tensor, nv: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seed the implicit prior precision P0 = (K + diag nv)⁻¹ = WᵀW over
+    all candidates: (W, WT) with W = L⁻¹ and WT = Wᵀ row-major."""
+    return _seed(gram_kernel_with_noise(spec, params, x, nv / params.noise_var))
+
+
+def implicit_precision_seed(
+    spec: KernelSpec,
+    params: KernelParams,
+    x: torch.Tensor,
+    *,
+    min_noise: float = 1e-3,
+    nv_mult: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`implicit_complement_precision` with the candidate noise
+    nv = nv_mult · max(exp(2·log_noise), min_noise²) derived on the
+    device: the episode's per-refit seed, no host read."""
+    return _seed(seed_matrix(spec, params, x, min_noise=min_noise,
+                             nv_mult=nv_mult))
+
+
+def seed_matrix(
+    spec: KernelSpec,
+    params: KernelParams,
+    x: torch.Tensor,
+    *,
+    min_noise: float = 1e-3,
+    nv_mult: float = 1.0,
+) -> torch.Tensor:
+    """The matrix the episode's MI seed factors: K(X, X) + diag nv with
+    nv = nv_mult · max(exp(2·log_noise), min_noise²), from the Gram
+    kernel."""
+    base = torch.clamp_min(torch.exp(2.0 * params.log_noise), min_noise * min_noise)
+    nv = torch.full((x.shape[0],), nv_mult, dtype=torch.float32,
+                    device=x.device) * base
+    return gram_kernel_with_noise(spec, params, x, nv / params.noise_var)
+
+
+def implicit_corrections(
+    W: torch.Tensor, WT: torch.Tensor, idx: torch.Tensor, count: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Schur factors deleting the sampled set A from the implicit
+    precision: P_V∖A = WᵀW − F·ZTᵀ with U = (WᵀW)[:, A] (N, C),
+    PA = U[A], Z = PA⁻¹Uᵀ; returns (U, Zᵀ).  idx is padded to a fixed
+    capacity C, of which the first `count` slots are real; a repeated
+    index is deleted once."""
+    dev = W.device
+    m = idx.shape[0]
+    valid = torch.arange(m, device=dev) < count
+    same = (idx[:, None] == idx[None, :]) & valid[:, None] & valid[None, :]
+    valid = valid & ~torch.tril(same, diagonal=-1).any(dim=1)
+    validf = valid.to(torch.float32)
+    idx_safe = torch.where(valid, idx, 0)
+    WE = WT.index_select(0, idx_safe).T * validf[None, :]  # (N, C) = W[:, A]
+    U = (W.T @ WE) * validf[None, :]  # (N, C) = (WᵀW)[:, A]
+    PA = U.index_select(0, idx_safe) * validf[:, None]
+    pair = valid[:, None] & valid[None, :]
+    PA = torch.where(pair, PA, torch.eye(m, dtype=torch.float32, device=dev))
+    Z = la.cho_solve(la.cholesky(PA), U.T) * validf[:, None]  # (C, N)
+    return U, Z.T

@@ -1,0 +1,268 @@
+"""Command-line experiment driver (the counterpart of algp_tpu.cli).
+
+    python -m algp_tpu_torch.cli --preset c5_10k              # on the card
+    python -m algp_tpu_torch.cli --preset c5_episode --rows 8 --cols 12 \\
+        --budget 24 --iters 10 --device cpu                   # on the CPU
+
+Flags fill the typed configs (config.py), starting from `--preset`.  The
+run goes to the card unless `--device cpu` asks for the CPU.  Modes:
+"episode" (the informative-path episode, episode.Agent) and "greedy"
+(pure greedy selection over every grid candidate, configs 3-4).
+
+Not ported: `--plots` and `--profile-dir` (the reference's matplotlib
+figures and jax.profiler trace), the deep-kernel flags, and whatever the
+field and episode do not support yet (they raise NotImplementedError;
+see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from algp_tpu_torch.config import (
+    PRESETS, ExperimentConfig, resolve_num_inducing, resolve_strategy,
+)
+from algp_tpu_torch.device import resolve_device
+from algp_tpu_torch.episode import Agent
+from algp_tpu_torch.field import FieldEnv
+from algp_tpu_torch.ops.kernels import KernelSpec
+from algp_tpu_torch.utils.metrics import MetricsLogger
+
+
+def _round4(v):
+    """4-digit rounding for summary JSON (None passes through)."""
+    return None if v is None else round(float(v), 4)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="algp_tpu_torch",
+        description="active-learning GP experiments, PyTorch / CUDA port",
+    )
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                   help="start from one of the ported acceptance configs")
+    p.add_argument("--mode", choices=("episode", "greedy"), default="episode",
+                   help="'episode': informative-path loop (config 5); "
+                   "'greedy': greedy selection over ALL grid candidates for "
+                   "--acq-rounds rounds (configs 3-4)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs on "
+                   "the CPU)")
+    p.add_argument("--strategy",
+                   choices=("mi", "entropy", "uniform", "naive", "auto"))
+    p.add_argument("--kernel", choices=("rbf", "matern32", "matern52"))
+    p.add_argument("--feature-kernel", choices=("rbf", "matern32", "matern52"))
+    p.add_argument("--rows", type=int, help="field rows")
+    p.add_argument("--cols", type=int, help="ranges per row")
+    p.add_argument("--features", type=int, help="feature dims (composite kernel)")
+    p.add_argument("--budget", type=float, help="episode travel budget")
+    p.add_argument("--num-pilot", type=int)
+    p.add_argument("--samples-per-step", type=int)
+    p.add_argument("--min-cost-frac", type=float,
+                   help="minimum path cost as a fraction of the budget slice")
+    p.add_argument("--noise-std", type=float)
+    p.add_argument("--modality", choices=("precise", "cheap", "mixed"),
+                   help="sensing-modality policy for collected samples")
+    p.add_argument("--waypoint-goals",
+                   help="comma-separated grid indices the episode must visit "
+                   "in order (informative strategies only)")
+    p.add_argument("--cheap-noise-mult", type=float)
+    p.add_argument("--optimizer", choices=("adam", "lbfgs"))
+    p.add_argument("--lr", type=float)
+    p.add_argument("--iters", type=int)
+    p.add_argument("--restarts", type=int)
+    p.add_argument("--acq-rounds", type=int, help="greedy rounds (configs 3-4)")
+    p.add_argument("--path-utility", choices=("per_cost", "per_sample"))
+    p.add_argument("--num-inducing", type=int,
+                   help="0 = exact MI planner; unset = preset value or auto")
+    p.add_argument("--lagged-refit", action="store_true", default=None,
+                   help="consume each refit one plan later")
+    p.add_argument("--refit-iters", type=int,
+                   help="warm refits: optimizer steps per post-pilot refit")
+    p.add_argument("--refit-restarts", type=int,
+                   help="warm refits: restarts per post-pilot refit")
+    p.add_argument("--runs", type=int, default=1, help="independent episodes")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--metrics-jsonl", help="stream per-round metrics to file")
+    p.add_argument("--checkpoint", help="save final episode state to .npz")
+    p.add_argument("--resume", help="resume an episode from a checkpoint .npz")
+    return p
+
+
+def config_from_args(args) -> ExperimentConfig:
+    cfg = PRESETS[args.preset] if args.preset else ExperimentConfig()
+    kernel, fit, acqc, field, ep = (
+        cfg.kernel, cfg.fit, cfg.acquisition, cfg.field, cfg.episode
+    )
+
+    def rep(obj, **kv):
+        kv = {k: v for k, v in kv.items() if v is not None}
+        return dataclasses.replace(obj, **kv) if kv else obj
+
+    df = args.features if args.features is not None else kernel.df
+    kernel = KernelSpec(
+        spatial_kind=args.kernel or kernel.spatial_kind,
+        feature_kind=args.feature_kernel or kernel.feature_kind,
+        ds=kernel.ds, df=df,
+    )
+    fit = rep(fit, optimizer=args.optimizer, learning_rate=args.lr,
+              iters=args.iters, restarts=args.restarts,
+              refit_iters=args.refit_iters, refit_restarts=args.refit_restarts)
+    acqc = rep(acqc, strategy=args.strategy, rounds=args.acq_rounds,
+               num_inducing=args.num_inducing, path_utility=args.path_utility)
+    field = rep(field, num_rows=args.rows, num_cols=args.cols,
+                num_features=args.features, noise_std=args.noise_std,
+                cheap_noise_mult=args.cheap_noise_mult, seed=args.seed)
+    ep = rep(ep, budget=args.budget, num_pilot=args.num_pilot,
+             samples_per_step=args.samples_per_step, seed=args.seed,
+             modality=args.modality, min_cost_frac=args.min_cost_frac,
+             lagged_refit=args.lagged_refit,
+             waypoint_goals=(tuple(int(g) for g in args.waypoint_goals.split(","))
+                             if args.waypoint_goals else None))
+    return ExperimentConfig(kernel=kernel, fit=fit, acquisition=acqc,
+                            field=field, episode=ep)
+
+
+def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[dict]:
+    """Configs 3-4: pilot → fit → `cfg.acquisition.rounds` greedy
+    entropy / MI selections over every grid candidate → collect → refit →
+    RMSE.  The fits draw their inits from generators seeded (seed + run,
+    0) and (seed + run, 1)."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch.models import gp as gp_mod
+
+    strategy = None
+    summaries = []
+    for run in range(runs):
+        fieldc = dataclasses.replace(cfg.field, seed=cfg.field.seed + run)
+        env = FieldEnv(fieldc, cfg.kernel, device=device)
+        if strategy is None:
+            strategy, _ = resolve_strategy(cfg.acquisition.strategy, env.n)
+        if strategy == "mi" and resolve_num_inducing(
+                cfg.acquisition.num_inducing, env.n):
+            raise NotImplementedError(
+                "greedy low-rank MI (num_inducing > 0) is not ported to "
+                "algp_tpu_torch yet; see ROADMAP.md")
+        log = MetricsLogger(stream)
+        pilot = np.unique(np.linspace(0, env.n - 1, cfg.episode.num_pilot)
+                          .round().astype(np.int64))
+        s = env.collect(pilot, "precise")
+        seed = cfg.episode.seed + run
+
+        def fit_on(idx, y, step):
+            idx_d = torch.as_tensor(idx, device=env.device)
+            x = env.X.index_select(0, idx_d)
+            y = torch.as_tensor(np.asarray(y, np.float32), device=env.device)
+            res = gp_mod.fit(cfg.kernel, cfg.fit, x, y, inits=gp_mod.step_inits(
+                cfg.kernel, cfg.fit, seed, step, env.device))
+            return res, x, y
+
+        res, _, _ = fit_on(s.indices, s.y, 0)
+        nv_base = float(np.maximum(
+            np.exp(2 * res.params.log_noise.cpu().numpy()), cfg.fit.min_noise**2))
+        sel = acq.greedy_select(
+            cfg.kernel, res.params, env.X,
+            torch.full((env.n,), nv_base, device=env.device),
+            torch.as_tensor(s.indices, device=env.device),
+            rounds=cfg.acquisition.rounds, num_pilot=len(s.indices),
+            strategy=strategy,
+        )
+        s2 = env.collect(sel.selected.cpu().numpy(), "precise")
+        all_idx = np.concatenate([s.indices, s2.indices])
+        all_y = np.concatenate([s.y, s2.y])
+        res2, x_all, y_all = fit_on(all_idx, all_y, 1)
+        post = gp_mod.posterior(cfg.kernel, res2.params, x_all, y_all)
+        mean, var = gp_mod.predict(cfg.kernel, res2.params, post, env.X)
+        mean, var = mean.cpu().numpy(), var.cpu().numpy()
+        rec = {
+            "run": run, "mode": "greedy", "strategy": strategy,
+            "rounds": cfg.acquisition.rounds, "n_sampled": int(len(all_idx)),
+            "final_rmse": env.rmse(mean),
+            "final_rmse_test": env.rmse(mean, test_only=True),
+            "mean_var": float(var.mean()),
+        }
+        log.log(**rec)
+        summaries.append(rec)
+        print(json.dumps(rec))
+    return summaries
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    device = resolve_device(args.device)
+
+    if args.mode == "greedy":
+        if cfg.acquisition.strategy not in ("mi", "entropy", "auto"):
+            raise SystemExit(
+                f"--mode greedy supports --strategy mi/entropy/auto (got "
+                f"{cfg.acquisition.strategy!r}); 'uniform'/'naive' are "
+                f"traversal baselines of --mode episode"
+            )
+        stream = open(args.metrics_jsonl, "w") if args.metrics_jsonl else None
+        try:
+            run_greedy(cfg, args.runs, device, stream)
+        finally:
+            if stream is not None:
+                stream.close()
+        return 0
+
+    resume_state = None
+    if args.resume:
+        from algp_tpu_torch.utils import checkpoint as ckpt
+
+        resume_state = ckpt.load(args.resume, device)
+
+    stream = open(args.metrics_jsonl, "w") if args.metrics_jsonl else None
+    summaries = []
+    try:
+        for run in range(args.runs):
+            fieldc = dataclasses.replace(cfg.field, seed=cfg.field.seed + run)
+            epc = dataclasses.replace(cfg.episode, seed=cfg.episode.seed + run)
+            run_cfg = dataclasses.replace(cfg, field=fieldc, episode=epc)
+            env = FieldEnv(fieldc, run_cfg.kernel, device=device)
+            agent = Agent(env, run_cfg, MetricsLogger(stream))
+            result = agent.run(resume_from=resume_state if run == 0 else None)
+            summaries.append({
+                "run": run,
+                "final_rmse": result.rmse,
+                "final_rmse_test": result.rmse_test,
+                "n_sampled": len(result.state.sampled_idx),
+                "steps": result.state.step,
+                "mean_var": float(np.mean(result.var)),
+                "nlpd_test": _round4(result.calibration.get("nlpd_test")),
+                "cov95_test": _round4(result.calibration.get("cov95_test")),
+            })
+            print(json.dumps(summaries[-1]))
+            if args.checkpoint:
+                from algp_tpu_torch.utils import checkpoint as ckpt
+
+                # normalise to .npz so per-run names never collide
+                root, ext = os.path.splitext(args.checkpoint)
+                if ext != ".npz":
+                    root += ext
+                path = f"{root}_run{run}.npz" if args.runs > 1 else root + ".npz"
+                ckpt.save(path, result.state)
+    finally:
+        if stream is not None:
+            stream.close()
+
+    if len(summaries) > 1:
+        rmses = [s["final_rmse"] for s in summaries]
+        print(json.dumps({
+            "runs": len(summaries),
+            "rmse_mean": float(np.mean(rmses)),
+            "rmse_std": float(np.std(rmses)),
+        }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,21 @@
 """Typed configuration (the counterpart of algp_tpu.config).
 
-Copied as frozen dataclasses because algp_tpu.config imports JAX.  Only
-the two configs the main path reads are here; the presets, the other
-configs and the `resolve_*` functions are not ported yet (ROADMAP.md).
+Copied as frozen dataclasses because algp_tpu.config imports JAX.  The
+field names and defaults equal the reference's, so a config built for
+one builds for the other.  The presets are the reference's for the
+configurations the port runs: c1-c4 and the config-5 episode at
+reference scale (`c5_episode`) and at the 10 000-point north-star grid
+(`c5_10k`).  The scale presets (c5_20k and up, the long campaigns) and
+the table preset need the low-rank planner, the FITC truth, SGPR refits
+or the table loader, which are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from algp_tpu_torch.ops.kernels import KernelSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,15 +34,83 @@ class FitConfig:
     learn_noise: bool = True
     min_noise: float = 1e-3  # floor on noise std for f32 conditioning
     jitter: float = 1e-6
-    # The fields below are read only by paths that are not ported yet
-    # (sparse refits, warm refits, multi-trait fits); they are kept so a
-    # config built for the reference builds here too.
+    # Episode-scale SGPR refits (not ported yet: the Agent raises when
+    # sparse_threshold is set).
     sparse_threshold: int = 0
     sparse_inducing: int = 256
+    # Warm refits: after the pilot fit, restart 0 starts from the
+    # incumbent params and the refit runs refit_iters steps over
+    # refit_restarts inits (0 keeps the full-fit value; models.gp.refit_cfg).
     refit_iters: int = 0
     refit_restarts: int = 0
+    # Multi-trait model family (not ported yet).
     multi_fit: str = "independent"
     icm_rank: int = 1
+
+
+#: planner auto-selection thresholds (resolve_num_inducing /
+#: resolve_strategy), the reference's values, measured on its TPU and not
+#: re-measured on the H100 yet (ROADMAP.md)
+_EXACT_MAX_N = 16384
+_LOWRANK_M_SMALL, _LOWRANK_M_LARGE = 1024, 512
+_LOWRANK_M_CAP_N = 1 << 19
+_MI_SMALL_MAX_N = 2500
+
+#: canonical path-utility names (acquisition.path_set_argmax's cost models)
+PATH_UTILITIES = ("per_cost", "per_sample")
+
+#: canonical multi-trait model-family names (FitConfig.multi_fit)
+MULTI_FITS = ("independent", "icm")
+
+
+def resolve_strategy(
+    strategy: str, n: int, path_utility: str = "per_cost"
+) -> tuple:
+    """Resolve `AcquisitionConfig.strategy` against the candidate count:
+    "auto" picks MI at grids ≤ 2 500 points, entropy through the exact
+    planner's range (≤ 16 384) and yield-aware mi:per_sample above it;
+    an explicit strategy and the configured utility are kept.  Returns
+    (strategy, path_utility)."""
+    if path_utility not in PATH_UTILITIES:
+        raise ValueError(
+            f"unknown path_utility {path_utility!r}; use {PATH_UTILITIES}"
+        )
+    if strategy != "auto":
+        return strategy, path_utility
+    if n <= _MI_SMALL_MAX_N:
+        return "mi", path_utility
+    if n <= _EXACT_MAX_N:
+        return "entropy", path_utility
+    return "mi", "per_sample"
+
+
+def resolve_num_inducing(num_inducing: Optional[int], n: int) -> int:
+    """Resolve `AcquisitionConfig.num_inducing` against the candidate
+    count: None picks the exact implicit precision (0) up to 16 384
+    candidates and the low-rank planner above (M = 1 024, or 512 past
+    2¹⁹); an explicit value is kept."""
+    if num_inducing is not None:
+        return num_inducing
+    if n <= _EXACT_MAX_N:
+        return 0
+    if n <= _LOWRANK_M_CAP_N:
+        return _LOWRANK_M_SMALL
+    return _LOWRANK_M_LARGE
+
+
+@dataclasses.dataclass(frozen=True)
+class AcquisitionConfig:
+    """Greedy active sampling and the episode's planner."""
+
+    # "mi" | "entropy" | "uniform" | "naive" | "auto" (resolve_strategy)
+    strategy: str = "mi"
+    rounds: int = 50  # greedy rounds (greedy mode)
+    # None = auto (resolve_num_inducing); 0 = the exact N×N implicit
+    # precision; M > 0 = the low-rank planner (not ported yet)
+    num_inducing: Optional[int] = None
+    # "per_cost" | "per_sample" (acquisition.path_set_argmax)
+    path_utility: str = "per_cost"
+    mi_ensemble: int = 1  # z-ensemble MI of the low-rank planner
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +140,91 @@ class FieldConfig:
     @property
     def num_points(self) -> int:
         return self.num_rows * self.num_cols
+
+
+@dataclasses.dataclass(frozen=True)
+class EpisodeConfig:
+    """Informative-path episode orchestration (episode.Agent)."""
+
+    num_pilot: int = 32  # pilot-survey samples
+    budget: float = 200.0  # total path budget
+    num_waypoints: int = 8  # paths per replan: the budget slice is budget/this
+    samples_per_step: int = 10
+    # minimum path cost as a fraction of the budget slice
+    # (planning.enumerate_paths)
+    min_cost_frac: float = 0.5
+    # ordered grid indices the robot must visit (goal-conditioned
+    # enumeration); None = free enumeration
+    waypoint_goals: Optional[tuple] = None
+    refit_every: int = 1  # refit the hyperparameters every k steps
+    # "precise" | "cheap" | "mixed" (one precise sample at the path's
+    # highest-variance site, cheap elsewhere)
+    modality: str = "precise"
+    # per-step metrics reduced on the device (None = auto, on from
+    # 16 384 points)
+    device_metrics: Optional[bool] = None
+    # static sample capacity; None = derived from the budget (episode.Agent)
+    max_samples: Optional[int] = None
+    # consume each refit one plan later (its fit overlaps the next step)
+    lagged_refit: bool = False
+    # stop instead of growing the capacity
+    hard_cap: bool = False
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    kernel: KernelSpec = KernelSpec()
+    fit: FitConfig = FitConfig()
+    acquisition: AcquisitionConfig = AcquisitionConfig()
+    field: FieldConfig = FieldConfig()
+    episode: EpisodeConfig = EpisodeConfig()
+    # deep feature kernel (the reference's MLPSpec); not ported yet, so
+    # anything but None raises where it is used
+    deep: Optional[object] = None
+
+
+PRESETS: dict[str, ExperimentConfig] = {
+    # 1. Exact GP, RBF, synthetic 2-D field (~1k pts): MLL fit + posterior.
+    "c1_rbf_fit": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="rbf", ds=2, df=0),
+        field=FieldConfig(num_rows=25, num_cols=40),
+        fit=FitConfig(restarts=1),
+    ),
+    # 2. Matérn + composite spatial×feature (the field with features is
+    # not ported yet: FieldEnv raises)
+    "c2_composite_restarts": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern52", feature_kind="rbf", ds=2, df=3),
+        field=FieldConfig(num_rows=25, num_cols=40, num_features=3),
+        fit=FitConfig(restarts=4, optimizer="adam"),
+    ),
+    # 3. Greedy entropy-based active sampling, 50 rounds.
+    "c3_entropy": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="rbf", ds=2, df=0),
+        field=FieldConfig(num_rows=25, num_cols=40),
+        acquisition=AcquisitionConfig(strategy="entropy", rounds=50),
+    ),
+    # 4. Krause-MI acquisition.
+    "c4_mi": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="rbf", ds=2, df=0),
+        field=FieldConfig(num_rows=25, num_cols=40),
+        acquisition=AcquisitionConfig(strategy="mi", rounds=50),
+    ),
+    # 5. Full informative-path episode with heteroscedastic noise.
+    "c5_episode": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=25, num_cols=40),
+        acquisition=AcquisitionConfig(strategy="mi"),
+        episode=EpisodeConfig(num_pilot=32, budget=200.0),
+    ),
+    # 5 at north-star scale: the 100×100 = 10k-point grid through the full
+    # path episode, exact MI planner, warm refits every 4 steps.
+    "c5_10k": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=100, num_cols=100, true_ls_spatial=8.0),
+        acquisition=AcquisitionConfig(strategy="mi"),
+        fit=FitConfig(refit_iters=60, refit_restarts=2),
+        episode=EpisodeConfig(num_pilot=64, budget=400.0, num_waypoints=8,
+                              samples_per_step=10, refit_every=4),
+    ),
+}

@@ -1,9 +1,13 @@
-"""KernelParams to and from numpy mappings keyed by the field names.
+"""Carry state between the reference and the port through numpy.
 
-The reference's `KernelParams` has the same field names, so a test hands
-the reference's parameters (or its `make_restart_inits` output, with a
+KernelParams go to and from numpy mappings keyed by the field names. The
+reference's `KernelParams` has the same field names, so a test hands the
+reference's parameters (or its `make_restart_inits` output, with a
 leading restart axis) to the port as
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`.
+
+`field_env_like` builds a port FieldEnv on the reference env's truth:
+the truth draws of the two packages come from different generators.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from algp_tpu_torch.config import FieldConfig
+from algp_tpu_torch.field import FieldEnv
 from algp_tpu_torch.ops.kernels import KernelParams
 
 _NAMES = tuple(f.name for f in dataclasses.fields(KernelParams))
@@ -35,3 +41,20 @@ def kernel_params_to_numpy(params: KernelParams) -> dict:
     return {
         name: getattr(params, name).detach().cpu().numpy() for name in _NAMES
     }
+
+
+def field_env_like(ref_env, device=None) -> FieldEnv:
+    """A port FieldEnv with the reference env's config, truth `f`, masks
+    and sensing generator state (its next `collect` draws the same noise
+    as the reference's).  `ref_env` is read by attribute only."""
+    cfg = FieldConfig(**{
+        f.name: getattr(ref_env.cfg, f.name)
+        for f in dataclasses.fields(FieldConfig)
+    })
+    env = FieldEnv(cfg, device=device, truth=np.asarray(ref_env.f))
+    if not np.array_equal(env.f, ref_env.f):
+        raise ValueError("the reference truth is not exact in float32")
+    env.observed_mask = np.array(ref_env.observed_mask, bool)
+    env.test_mask = np.array(ref_env.test_mask, bool)
+    env._rng.bit_generator.state = ref_env._rng.bit_generator.state
+    return env

@@ -1,0 +1,663 @@
+"""The active-learning episode (the counterpart of algp_tpu.episode).
+
+Pilot survey → MLL fit → repeat { enumerate budgeted paths from the pose,
+score each path's sample set by joint information per unit cost, travel
+the winner, collect (heteroscedastically) noisy samples, refit every
+`refit_every` steps } until the travel budget is spent, with posterior
+RMSE / variance metrics every step.  Strategies: "mi" and "entropy"
+(informative), "uniform" (random sites), "naive" (boustrophedon sweep).
+
+Host / device split: this module is host Python on numpy state; the
+device work of an informative step is one `acquisition.plan_episode_step`
+(the plan and the current posterior metrics together), and its outputs
+come back in ONE device→host copy.  Uploads are non-blocking, refits and
+the per-refit MI seed are queued without waiting, so the host enumerates
+the next paths while the card works.  The Agent runs on its env's device.
+
+Random streams: the fit inits of step t come from `gp.step_inits(seed,
+t)` (the reference's fold_in(PRNGKey(seed), t) cannot be reproduced in
+torch); the agent and env numpy generators are the reference's, so a
+uniform episode draws the same sites.
+
+Not ported (raise NotImplementedError, see ROADMAP.md): the low-rank
+planner and `mi_ensemble`, episode-scale SGPR refits, the deep feature
+kernel, multi-trait fields and the mesh episode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from algp_tpu_torch import acquisition as acq
+from algp_tpu_torch import planning
+from algp_tpu_torch.config import (
+    PATH_UTILITIES, ExperimentConfig, resolve_num_inducing, resolve_strategy,
+)
+from algp_tpu_torch.field import FieldEnv, Sample
+from algp_tpu_torch.models import gp as gp_mod
+from algp_tpu_torch.utils.checkpoint import EpisodeState
+from algp_tpu_torch.utils.metrics import MetricsLogger
+
+STRATEGIES = ("mi", "entropy", "uniform", "naive")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"Agent: {what} is not ported to algp_tpu_torch yet; see ROADMAP.md"
+    )
+
+
+def _upload(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host array → device tensor without waiting for the device (a
+    pageable upload is staged before the call returns, so `a` may change
+    afterwards)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(
+        device, non_blocking=True)
+
+
+@dataclasses.dataclass
+class _PlanBundle:
+    """One step's plan + the posterior metrics of the state it was
+    planned from.  With device metrics `mean`/`var` are None and
+    `var_sites` holds the posterior variances at the path's sites."""
+
+    nodes: list
+    cost: float
+    sites: list
+    mean: Optional[np.ndarray]
+    var: Optional[np.ndarray]
+    rmse: float
+    rmse_test: float
+    mean_var: float
+    var_sites: Optional[np.ndarray] = None
+
+    @property
+    def empty(self) -> bool:
+        return len(self.nodes) == 0 or self.cost <= 0 or not self.sites
+
+
+@dataclasses.dataclass
+class EpisodeResult:
+    state: EpisodeState
+    history: list[dict]
+    mean: np.ndarray  # final posterior mean over the grid
+    var: np.ndarray  # final posterior variance over the grid
+    rmse: float  # over all ground-truth cells
+    rmse_test: float  # over the held-out split only
+    calibration: dict = dataclasses.field(default_factory=dict)
+    trait_rmse: Optional[list] = None  # multi-trait (not ported): None
+    trait_rmse_test: Optional[list] = None
+
+
+class Agent:
+    """Episode orchestrator on `env.device`."""
+
+    def __init__(self, env: FieldEnv, cfg: ExperimentConfig,
+                 logger: Optional[MetricsLogger] = None):
+        if cfg.deep is not None:
+            raise _not_ported("the deep feature kernel")
+        if env.num_traits > 1:
+            raise _not_ported("a multi-trait field")
+        if cfg.fit.sparse_threshold:
+            raise _not_ported("episode-scale SGPR refits (sparse_threshold)")
+        self.env = env
+        self.cfg = cfg
+        self.spec = cfg.kernel
+        self.device = env.device
+        self._Xdev = env.X
+        self.logger = logger or MetricsLogger()
+        self.rng = np.random.default_rng(cfg.episode.seed)
+        self._pad_paths = 256  # static path-batch size, as the reference's
+        self._k_max = cfg.episode.samples_per_step
+        self._num_inducing = resolve_num_inducing(
+            cfg.acquisition.num_inducing, env.n
+        )
+        self._strategy, self._path_utility = resolve_strategy(
+            cfg.acquisition.strategy, env.n, cfg.acquisition.path_utility
+        )
+        if self._strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown strategy {cfg.acquisition.strategy!r}; use "
+                f"{STRATEGIES + ('auto',)}"
+            )
+        if self._path_utility not in PATH_UTILITIES:
+            raise ValueError(
+                f"unknown path_utility {cfg.acquisition.path_utility!r}; "
+                f"use {PATH_UTILITIES}"
+            )
+        if int(cfg.acquisition.mi_ensemble) > 1:
+            if self._strategy == "mi" and not self._num_inducing:
+                raise ValueError(
+                    "mi_ensemble > 1 needs the low-rank planner "
+                    "(num_inducing > 0 or auto above the crossover) — "
+                    "the exact W seed has no design to vary"
+                )
+            raise _not_ported("z-ensemble MI (mi_ensemble > 1)")
+        if self._strategy == "mi" and self._num_inducing:
+            raise _not_ported(
+                f"the low-rank MI planner (num_inducing={self._num_inducing})")
+        if cfg.episode.waypoint_goals is not None:
+            bad = [g for g in cfg.episode.waypoint_goals
+                   if not 0 <= int(g) < env.n]
+            if bad:
+                raise ValueError(
+                    f"waypoint_goals outside the grid (n={env.n}): {bad}"
+                )
+        # static sample capacity: the planner prefers paths costing at
+        # least min_cost_frac of the budget slice, so a budget funds at
+        # most ceil(num_waypoints / min_cost_frac) full steps, + 6 steps of
+        # slack for short fallback paths, each of samples_per_step samples
+        if cfg.episode.max_samples is not None:
+            cap = cfg.episode.max_samples
+        else:
+            frac = max(cfg.episode.min_cost_frac, 1e-6)
+            cap = cfg.episode.num_pilot + (
+                int(np.ceil(cfg.episode.num_waypoints / frac)) + 6
+            ) * self._k_max
+        self._max_samples = (cap + 7) // 8 * 8
+        self._P_cache = None  # (params, W, WT) — exact implicit-precision seed
+        self._post_cache = None  # (params, n_samples, Posterior)
+        self._base_noise_cache = None
+        self._noise_vec_cache = None
+        self._truth_cache = None
+        self._step_post_var = None
+        self._step_site_var = None
+        self._plan_profile: dict = {}
+
+    def _grow_capacity(self, needed: int) -> None:
+        """Grow the static sample capacity, with a warning: every padded
+        buffer changes shape (pre-size with EpisodeConfig.max_samples)."""
+        if needed <= self._max_samples:
+            return
+        new_cap = (needed + 63) // 64 * 64
+        warnings.warn(
+            f"episode outgrew its static sample capacity ({needed} > "
+            f"{self._max_samples}); growing to {new_cap} — pre-size the "
+            f"campaign with EpisodeConfig.max_samples",
+            RuntimeWarning, stacklevel=3,
+        )
+        self._max_samples = new_cap
+
+    def _pad_sampled_host(self, st: EpisodeState):
+        """Host padded sampled-set buffers (idx 0-fill, scale 1-fill,
+        y 0-fill) — the one padding convention every consumer uses."""
+        m = len(st.sampled_idx)
+        self._grow_capacity(m)
+        cap = self._max_samples
+        idx = np.zeros(cap, np.int64)
+        idx[:m] = st.sampled_idx
+        ns = np.ones(cap, np.float32)
+        ns[:m] = st.noise_scale
+        y = np.zeros(cap, np.float32)
+        y[:m] = st.y
+        return idx, ns, y, m
+
+    def _padded_obs(self, st: EpisodeState):
+        """(idx, count, noise_scale, y) on the device, padded to capacity."""
+        idx, ns, y, m = self._pad_sampled_host(st)
+        dev = self.device
+        return (_upload(idx, torch.int64, dev), m,
+                _upload(ns, torch.float32, dev), _upload(y, torch.float32, dev))
+
+    def _padded_train(self, st: EpisodeState):
+        """(x, y, noise_scale, num_valid) padded to capacity, on the device."""
+        idx, m, ns, y = self._padded_obs(st)
+        return self._Xdev.index_select(0, idx), y, ns, m
+
+    # ------------------------------------------------------------ pilot
+
+    def _collect(self, idx, modality: str) -> Sample:
+        return self.env.collect(idx, modality)
+
+    def pilot_survey(self) -> EpisodeState:
+        """Uniformly spread pilot samples (precise modality)."""
+        n_pilot = self.cfg.episode.num_pilot
+        idx = np.unique(
+            np.linspace(0, self.env.n - 1, n_pilot).round().astype(np.int64)
+        )
+        s = self._collect(idx, "precise")
+        return EpisodeState(
+            sampled_idx=s.indices, y=s.y, noise_scale=s.noise_scale,
+            pose=int(s.indices[-1]), budget_left=self.cfg.episode.budget, step=0,
+        )
+
+    # ------------------------------------------------------------ model
+
+    def fit_model(self, st: EpisodeState, lagged: bool = False):
+        """Refit on the padded training buffers, queued on the device.
+        After the pilot fit, warm refits (FitConfig.refit_iters /
+        refit_restarts) start restart 0 from the incumbent.  `lagged`
+        stores the result as `st.pending_params`, adopted a plan later."""
+        x, y, ns, m = self._padded_train(st)
+        fit = self.cfg.fit
+        seed = self.cfg.episode.seed
+        if st.params is not None and (fit.refit_iters or fit.refit_restarts):
+            res = gp_mod.fit_step_warm(
+                self.spec, fit, x, y, ns, seed, st.step,
+                incumbent=st.params, num_valid=m,
+            )
+        else:
+            res = gp_mod.fit_step(self.spec, fit, x, y, ns, seed, st.step,
+                                  num_valid=m)
+        if lagged:
+            st.pending_params = res.params
+        else:
+            st.params = res.params
+        return res
+
+    def _base_noise(self, st: EpisodeState) -> float:
+        """Fitted base noise variance with the f32 floor, read on the host
+        once per fitted params (uniform / naive / the mixed fallback)."""
+        c = self._base_noise_cache
+        if c is not None and c[0] is st.params:
+            return c[1]
+        base = float(np.maximum(
+            np.exp(2.0 * st.params.log_noise.detach().cpu().numpy()),
+            self.cfg.fit.min_noise**2,
+        ))
+        self._base_noise_cache = (st.params, base)
+        return base
+
+    def _noise_vec(self, st: EpisodeState) -> torch.Tensor:
+        """Per-candidate noise variance of future measurements under the
+        modality policy, cached per fitted params."""
+        c = self._noise_vec_cache
+        if c is not None and c[0] is st.params:
+            return c[1]
+        nv = torch.full((self.env.n,), self._base_noise(st) * self._nv_mult,
+                        dtype=torch.float32, device=self.device)
+        self._noise_vec_cache = (st.params, nv)
+        return nv
+
+    def predict_field(self, st: EpisodeState):
+        """Posterior mean / variance over the grid, read in one copy.
+        Between refits the cached factor grows by the step's samples
+        (`gp.extend_and_predict`); a refit refactorizes once."""
+        x, y, ns, m = self._padded_train(st)
+        n_samp = len(st.sampled_idx)
+        c = self._post_cache
+        k_new = None if c is None else n_samp - c[1]
+        jitter = self.cfg.fit.jitter
+        if (c is not None and c[0] is st.params
+                and 0 < k_new <= self._k_max + 1
+                and c[2].L.shape[0] == x.shape[0]):  # capacity unchanged
+            new_nv = np.full(self._k_max + 1, 1.0, np.float32)
+            new_nv[:k_new] = self._base_noise(st) * st.noise_scale[c[1]:]
+            post, mean, var = gp_mod.extend_and_predict(
+                self.spec, st.params, c[2], x, y,
+                _upload(new_nv, torch.float32, self.device), c[1], k_new,
+                self._Xdev, jitter=jitter,
+            )
+        elif c is not None and c[0] is st.params and k_new == 0:
+            post = c[2]
+            mean, var = gp_mod.predict(self.spec, st.params, post, self._Xdev)
+        else:
+            post, mean, var = gp_mod.posterior_and_predict(
+                self.spec, st.params, x, y, ns, self._Xdev,
+                min_noise=self.cfg.fit.min_noise, jitter=jitter, num_valid=m,
+            )
+        self._post_cache = (st.params, n_samp, post)
+        both = torch.cat([mean, var]).cpu().numpy()  # the one read
+        n = self.env.n
+        return both[:n], both[n:]
+
+    # ------------------------------------------------------- planning step
+
+    def _conditioning_state(self, st: EpisodeState, nv):
+        """Basis / posterior variance over all candidates given everything
+        sampled (a rounds=0 greedy pass over the padded sampled set)."""
+        idx, ns, _, m = self._pad_sampled_host(st)
+        pnv = np.full(self._max_samples, 1.0, np.float32)
+        pnv[:m] = self._base_noise(st) * st.noise_scale
+        res = acq.greedy_select(
+            self.spec, st.params, self._Xdev, nv,
+            _upload(idx, torch.int64, self.device),
+            rounds=0, num_pilot=self._max_samples, strategy="entropy",
+            pilot_count=m, pilot_nv=_upload(pnv, torch.float32, self.device),
+        )
+        return res.basis, res.post_var
+
+    @property
+    def _nv_mult(self) -> float:
+        """Future-measurement noise-variance scale of the modality policy:
+        "cheap" / "mixed" score candidates at the cheap sensor's variance."""
+        if self.cfg.episode.modality in ("cheap", "mixed"):
+            return float(self.env.cfg.cheap_noise_mult**2)
+        return 1.0
+
+    @property
+    def _use_device_metrics(self) -> bool:
+        """Reduce the per-step metrics on the device (EpisodeConfig.
+        device_metrics; auto from 16 384 points, as the reference)."""
+        dm = self.cfg.episode.device_metrics
+        if dm is not None:
+            return bool(dm)
+        return self.env.n >= 16384
+
+    def _truth(self):
+        """(f_true, obs_mask, test_mask), f32 on the device, built once."""
+        if self._truth_cache is None:
+            env, dev = self.env, self.device
+            obs = _upload(env.observed_mask, torch.float32, dev)
+            test_idx = _upload(np.flatnonzero(env.test_mask), torch.int64, dev)
+            test = torch.zeros(env.n, dtype=torch.float32, device=dev)
+            test.index_fill_(0, test_idx, 1.0)
+            self._truth_cache = (env.f_dev, obs, test)
+        return self._truth_cache
+
+    def _host_bundle(self, nodes, cost, sites, mean, var) -> _PlanBundle:
+        return _PlanBundle(
+            nodes, cost, sites, mean, var,
+            rmse=self.env.rmse(mean),
+            rmse_test=self.env.rmse(mean, test_only=True),
+            mean_var=float(var.mean()),
+        )
+
+    def _plan_and_metrics(self, st: EpisodeState) -> _PlanBundle:
+        """Plan the next path and produce the posterior metrics of the
+        current state.  mi / entropy: one `plan_episode_step` and one
+        device→host copy; uniform / naive plan on the host and read the
+        metrics from `predict_field`."""
+        strat = self._strategy
+        self._step_post_var = None  # for _sense('mixed')
+        self._step_site_var = None
+        prof = self._plan_profile = {}
+        t_start = time.perf_counter()
+        slice_budget = min(
+            st.budget_left,
+            self.cfg.episode.budget / max(1, self.cfg.episode.num_waypoints),
+        )
+        if strat == "naive":
+            order = planning.boustrophedon_order(self.env)
+            unsampled = order[~np.isin(order, st.sampled_idx)]
+            # the sweep pays col_spacing per cell: never take more cells
+            # than the remaining budget affords
+            afford = int(st.budget_left / max(self.env.cfg.col_spacing, 1e-9))
+            take = list(unsampled[: min(self._k_max, afford)])
+            mean, var = self.predict_field(st)
+            return self._host_bundle(
+                take, float(len(take) * self.env.cfg.col_spacing), take,
+                mean, var,
+            )
+        if strat == "uniform":
+            unsampled = np.setdiff1d(np.arange(self.env.n), st.sampled_idx)
+            take = list(np.sort(self.rng.choice(
+                unsampled, min(self._k_max, len(unsampled)), replace=False
+            )))
+            mean, var = self.predict_field(st)
+            return self._host_bundle(take, float(slice_budget), take, mean, var)
+
+        goal = self._current_goal(st)
+        batch = planning.enumerate_batch(
+            self.env, st.pose, slice_budget, goal=goal,
+            max_paths=self._pad_paths, k_max=self._k_max,
+            min_cost_frac=self.cfg.episode.min_cost_frac,
+        )
+        if goal is not None and not len(batch):
+            # the waypoint is out of reach within this slice: a free step
+            # toward it instead of stalling
+            self.logger.log(step=st.step, phase="goal_fallback", goal=int(goal))
+            batch = planning.enumerate_batch(
+                self.env, st.pose, slice_budget,
+                max_paths=self._pad_paths, k_max=self._k_max,
+                min_cost_frac=self.cfg.episode.min_cost_frac,
+            )
+        if not len(batch):
+            # terminal plan (slice spent / pose cornered): this fetch is
+            # the episode's final one
+            t0 = time.perf_counter()
+            mean, var = self.predict_field(st)
+            self.logger.log(step=st.step, phase="final",
+                            final_fetch_s=round(time.perf_counter() - t0, 4))
+            return self._host_bundle([], 0.0, [], mean, var)
+        # pad the batch to the static shape: zero-size paths never win
+        P = self._pad_paths
+        sets = np.zeros((P, self._k_max), np.int64)
+        sizes = np.zeros((P,), np.int64)
+        costs = np.ones((P,), np.float32)
+        sets[: len(batch)] = batch.sets
+        sizes[: len(batch)] = batch.sizes
+        costs[: len(batch)] = batch.costs
+        prof["enum_s"] = time.perf_counter() - t_start
+
+        t0 = time.perf_counter()
+        idx_pad, m, ns_pad, y_pad = self._padded_obs(st)
+        W = WT = None
+        if strat == "mi":
+            W, WT = self._precision_seed(st)
+        prof["seed_s"] = time.perf_counter() - t0  # queued, not waited for
+
+        t0 = time.perf_counter()
+        dev = self.device
+        sets_d = _upload(sets, torch.int64, dev)
+        sizes_d = _upload(sizes, torch.int64, dev)
+        costs_d = _upload(costs, torch.float32, dev)
+        common = dict(min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
+                      path_utility=self._path_utility)
+        if self._use_device_metrics:
+            f_true, obs_m, test_m = self._truth()
+            best, rmse, rmse_test, mean_var, var_sites = (
+                acq.plan_episode_step_metrics(
+                    self.spec, st.params, self._Xdev, idx_pad, m, ns_pad, y_pad,
+                    sets_d, sizes_d, costs_d, f_true, obs_m, test_m, W, WT,
+                    strategy=strat, **common,
+                ))
+            # the step's one device→host copy, a few dozen bytes
+            h = torch.cat([best.to(torch.float32).reshape(1), rmse.reshape(1),
+                           rmse_test.reshape(1), mean_var.reshape(1),
+                           var_sites]).cpu().numpy()
+            prof["step_s"] = time.perf_counter() - t0
+            best = int(h[0])
+            sites = list(batch.sets[best][: batch.sizes[best]])
+            self._step_site_var = h[4:]
+            return _PlanBundle(
+                batch.node_seqs[best], float(batch.costs[best]), sites,
+                None, None, rmse=float(h[1]), rmse_test=float(h[2]),
+                mean_var=float(h[3]), var_sites=h[4:],
+            )
+
+        best, mean, var, _ = acq.plan_episode_step(
+            self.spec, st.params, self._Xdev, idx_pad, m, ns_pad, y_pad,
+            sets_d, sizes_d, costs_d, W, WT, strategy=strat, **common,
+        )
+        # the step's one device→host copy
+        h = torch.cat([best.to(torch.float32).reshape(1), mean, var]).cpu().numpy()
+        prof["step_s"] = time.perf_counter() - t0
+        n = self.env.n
+        best = int(h[0])
+        mean, var = h[1: 1 + n], h[1 + n:]
+        self._step_post_var = var  # for _sense('mixed')
+        sites = list(batch.sets[best][: batch.sizes[best]])
+        return self._host_bundle(
+            batch.node_seqs[best], float(batch.costs[best]), sites, mean, var,
+        )
+
+    def _current_goal(self, st: EpisodeState) -> Optional[int]:
+        """Next unvisited EpisodeConfig.waypoint_goals entry, advancing past
+        goals the pose has reached; None when there is none."""
+        goals = self.cfg.episode.waypoint_goals
+        if not goals:
+            return None
+        while st.goal_i < len(goals) and int(goals[st.goal_i]) == st.pose:
+            st.goal_i += 1
+        if st.goal_i >= len(goals):
+            return None
+        return int(goals[st.goal_i])
+
+    def _sense(self, st: EpisodeState, sample_nodes: list) -> list:
+        """Collect along a path under the modality policy.  "mixed" spends
+        the precise sensor on the path's highest-posterior-variance site
+        and the cheap one on the rest."""
+        policy = self.cfg.episode.modality
+        if policy in ("precise", "cheap"):
+            return [self._collect(sample_nodes, policy)]
+        if policy != "mixed":
+            raise ValueError(f"unknown modality policy {policy!r}")
+        if self._step_site_var is not None:  # device metrics: site order
+            pv = self._step_site_var[: len(sample_nodes)]
+        elif self._step_post_var is not None:
+            pv = np.asarray(self._step_post_var)[np.asarray(sample_nodes)]
+        else:
+            _, pvar = self._conditioning_state(st, self._noise_vec(st))
+            pv = pvar.cpu().numpy()[np.asarray(sample_nodes)]
+        best = int(np.argmax(pv))
+        cheap_nodes = [n for i, n in enumerate(sample_nodes) if i != best]
+        out = [self._collect([sample_nodes[best]], "precise")]
+        if cheap_nodes:
+            out.append(self._collect(cheap_nodes, "cheap"))
+        return out
+
+    def _precision_seed(self, st: EpisodeState, params=None):
+        """(W, WT) implicit-precision seed, cached per fitted params (one
+        Gram kernel launch, Cholesky and tri_inv per refit, queued on the
+        device).  The Schur corrections for the current sampled set are
+        rebuilt inside every step from W.  `params` overrides st.params
+        (the lagged refit seeds its pending params)."""
+        params = st.params if params is None else params
+        cached = self._P_cache
+        if cached is None or cached[0] is not params:
+            W, WT = acq.implicit_precision_seed(
+                self.spec, params, self._Xdev,
+                min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
+            )
+            self._P_cache = (params, W, WT)
+        return self._P_cache[1], self._P_cache[2]
+
+    def _dispatch_refit_seed(self, st: EpisodeState, params=None):
+        """Queue the per-refit MI seed for the given params (no-op unless
+        the strategy is mi)."""
+        if self._strategy == "mi":
+            self._precision_seed(st, params)
+
+    # ------------------------------------------------------------ episode
+
+    def run(self, max_steps: int = 1000,
+            resume_from: Optional[EpisodeState] = None) -> EpisodeResult:
+        """Run (or resume) an episode.  `resume_from` restarts from a
+        checkpointed EpisodeState (utils.checkpoint); selection is a pure
+        function of that state, so the continuation is exact."""
+        ep = self.cfg.episode
+        if resume_from is not None:
+            st = resume_from
+            if st.y_traits is not None or st.mlp is not None:
+                raise _not_ported("resuming a multi-trait or deep-kernel episode")
+            if st.rng_state is not None:
+                if "agent" in st.rng_state:
+                    self.rng.bit_generator.state = st.rng_state["agent"]
+                if "env" in st.rng_state:
+                    self.env._rng.bit_generator.state = st.rng_state["env"]
+        else:
+            st = self.pilot_survey()
+        t0 = time.perf_counter()
+        if st.params is None:
+            self.fit_model(st)
+        t_fit0 = time.perf_counter() - t0
+        # the bundle carries the next step's plan with the current state's
+        # metrics; plan wall time is attributed to the step it plans for
+        t0 = time.perf_counter()
+        bundle = self._plan_and_metrics(st)
+        carry_plan = time.perf_counter() - t0
+        carry_prof = self._plan_profile
+        self.logger.log(
+            step=st.step, phase="pilot" if resume_from is None else "resume",
+            n_sampled=len(st.sampled_idx), rmse=bundle.rmse,
+            rmse_test=bundle.rmse_test, mean_var=bundle.mean_var,
+            budget_left=st.budget_left, fit_s=round(t_fit0, 4),
+        )
+
+        capped = False
+        while st.budget_left > 0 and st.step < max_steps:
+            if bundle.empty:
+                break
+            if (ep.hard_cap
+                    and len(st.sampled_idx) + len(bundle.sites) > self._max_samples):
+                # capacity as a stop condition: end cleanly instead of growing
+                self.logger.log(step=st.step, phase="hard_cap",
+                                n_sampled=len(st.sampled_idx),
+                                budget_left=round(st.budget_left, 3))
+                capped = True
+                break
+            st.step += 1
+            nodes, cost, sample_nodes = bundle.nodes, bundle.cost, bundle.sites
+            t0 = time.perf_counter()
+            samples = self._sense(st, sample_nodes)
+            st.sampled_idx = np.concatenate(
+                [st.sampled_idx] + [s.indices for s in samples])
+            st.y = np.concatenate([st.y] + [s.y for s in samples])
+            st.noise_scale = np.concatenate(
+                [st.noise_scale] + [s.noise_scale for s in samples])
+            st.pose = int(nodes[-1])
+            st.budget_left -= cost
+            t_sense = time.perf_counter() - t0
+
+            refit_due = st.step % ep.refit_every == 0
+            t0 = time.perf_counter()
+            if ep.lagged_refit:
+                # adopt the refit queued at the previous refit step
+                if st.pending_params is not None:
+                    st.params = st.pending_params
+                    st.pending_params = None
+            elif refit_due:
+                self.fit_model(st)
+                self._P_cache = None  # params changed → re-seed
+                # queue the seed now: the host's path enumeration below
+                # overlaps the fit and seed device time
+                self._dispatch_refit_seed(st)
+            t_fit = time.perf_counter() - t0
+            # rng states saved before the next plan draws from them, so a
+            # checkpoint written after this step resumes exactly
+            st.rng_state = {
+                "agent": self.rng.bit_generator.state,
+                "env": self.env._rng.bit_generator.state,
+            }
+            t0 = time.perf_counter()
+            bundle = self._plan_and_metrics(st)
+            t_plan, carry_plan = carry_plan, time.perf_counter() - t0
+            prof, carry_prof = carry_prof, self._plan_profile
+            if ep.lagged_refit and refit_due:
+                # queue the refit after the plan read its outputs: it runs
+                # while the host senses / enumerates the next step
+                t0 = time.perf_counter()
+                self.fit_model(st, lagged=True)
+                self._dispatch_refit_seed(st, st.pending_params)
+                t_fit += time.perf_counter() - t0
+            self.logger.log(
+                step=st.step, phase="plan", n_sampled=len(st.sampled_idx),
+                n_new=len(sample_nodes), path_cost=round(cost, 3),
+                rmse=bundle.rmse, rmse_test=bundle.rmse_test,
+                mean_var=bundle.mean_var, budget_left=round(st.budget_left, 3),
+                plan_s=round(t_plan, 4), fit_s=round(t_fit, 4),
+                sense_s=round(t_sense, 4),
+                **{k: round(v, 4) for k, v in prof.items()},
+            )
+
+        if (ep.lagged_refit and st.pending_params is not None
+                and (st.budget_left <= 0 or bundle.empty or capped)):
+            # the episode ended with a queued refit: adopt it for the final
+            # posterior (an interrupted run keeps it pending for resume)
+            st.params = st.pending_params
+            st.pending_params = None
+            bundle.mean = bundle.var = None  # force a fresh final fetch
+        mean, var = bundle.mean, bundle.var
+        if mean is None:
+            t0 = time.perf_counter()
+            mean, var = self.predict_field(st)
+            self.logger.log(step=st.step, phase="final",
+                            final_fetch_s=round(time.perf_counter() - t0, 4))
+        calib = self.env.calibration(mean, var)
+        calib.update({k + "_test": v for k, v in
+                      self.env.calibration(mean, var, test_only=True).items()})
+        self.logger.log(step=st.step, phase="calibration",
+                        **{k: round(v, 6) for k, v in calib.items()})
+        return EpisodeResult(
+            state=st, history=self.logger.history, mean=mean, var=var,
+            rmse=self.env.rmse(mean),
+            rmse_test=self.env.rmse(mean, test_only=True),
+            calibration=calib,
+        )

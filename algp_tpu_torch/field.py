@@ -9,9 +9,12 @@ packages' truths differ).  Everything else is host code, and the numpy
 generator `default_rng(cfg.seed)` is called in the reference's order, so
 the held-out split and the `collect` noise equal the reference's.
 
+The env runs on the card unless the caller passes `device="cpu"`.  A
+given `truth` (n,) replaces the draw, so a test can run both packages on
+the reference's field (`convert.field_env_like`).
+
 Not ported yet: phenotype tables, per-point features and feature warps,
-multiple traits, the FITC (`synth_inducing`) truth and `calibration`;
-see ROADMAP.md.
+multiple traits and the FITC (`synth_inducing`) truth; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from algp_tpu_torch.config import FieldConfig
+from algp_tpu_torch.device import resolve_device
 from algp_tpu_torch.ops import linalg as la
 from algp_tpu_torch.ops.gram import gram_kernel
 from algp_tpu_torch.ops.kernels import KernelSpec
@@ -51,12 +55,12 @@ class FieldEnv:
     Geometry: `num_rows` crop rows (y axis), each with `num_cols` ranges
     (x axis).  Grid index i ↔ (row, col) = divmod(i, num_cols); the map
     pose of a point is (col·col_spacing, row·row_spacing).  `X` (n, 2)
-    f32 lives on `device`; the truth `f` is a f64 host array and `f_dev`
-    its f32 device copy.
+    f32 lives on `device` (the card when None); the truth `f` is a f64
+    host array and `f_dev` its f32 device copy.
     """
 
     def __init__(self, cfg: FieldConfig, spec: Optional[KernelSpec] = None,
-                 device="cpu"):
+                 device=None, truth: Optional[np.ndarray] = None):
         if not 0.0 <= cfg.trait_corr < 1.0:
             raise ValueError(
                 f"trait_corr must be in [0, 1) (got {cfg.trait_corr})"
@@ -76,7 +80,7 @@ class FieldEnv:
         if cfg.synth_inducing:
             raise _not_ported("the FITC truth (synth_inducing)")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.num_rows = cfg.num_rows
         self.num_cols = cfg.num_cols
         self.n = cfg.num_rows * cfg.num_cols
@@ -87,7 +91,13 @@ class FieldEnv:
             [cols * cfg.col_spacing, rows * cfg.row_spacing], axis=1
         ).astype(np.float32)
         self.X = torch.as_tensor(xy, device=self.device)
-        self.f_dev = self._synthesize(spec)
+        if truth is None:
+            self.f_dev = self._synthesize(spec)
+        else:
+            truth = np.asarray(truth, np.float32)
+            if truth.shape != (self.n,):
+                raise ValueError(f"truth must be ({self.n},), got {truth.shape}")
+            self.f_dev = torch.as_tensor(truth, device=self.device)
         self.f = self.f_dev.double().cpu().numpy()
         if not np.isfinite(self.f).all():
             # safe_cholesky exhausts its jitter ladder silently; a NaN
@@ -159,6 +169,10 @@ class FieldEnv:
         )
         return Sample(indices=idx, y=y, noise_scale=scale)
 
+    @property
+    def num_traits(self) -> int:
+        return 1
+
     # ------------------------------------------------------------- metrics
 
     def rmse(self, mean, test_only: bool = False) -> float:
@@ -169,3 +183,22 @@ class FieldEnv:
         m = np.asarray(mean, np.float64)
         mask = self.test_mask if test_only else self.observed_mask
         return float(np.sqrt(np.mean((m[mask] - self.f[mask]) ** 2)))
+
+    def calibration(self, mean, var, test_only: bool = False) -> dict:
+        """Predictive calibration of a posterior (μ, σ²) field against the
+        truth, masked as `rmse`, host f64: `nlpd` (mean negative log
+        predictive density) and `cov90`/`cov95` (share of truth cells
+        inside the central 90 % / 95 % interval).  σ² is floored at 1e-12."""
+        m = np.asarray(mean, np.float64)
+        v = np.maximum(np.asarray(var, np.float64), 1e-12)
+        mask = self.test_mask if test_only else self.observed_mask
+        d = m[mask] - self.f[mask]
+        vm = v[mask]
+        nlpd = 0.5 * np.mean(np.log(2.0 * np.pi * vm) + d * d / vm)
+        z = np.abs(d) / np.sqrt(vm)
+        return {
+            "nlpd": float(nlpd),
+            # central-interval half-widths: Φ⁻¹(0.95), Φ⁻¹(0.975)
+            "cov90": float(np.mean(z <= 1.6448536269514722)),
+            "cov95": float(np.mean(z <= 1.959963984540054)),
+        }

@@ -10,8 +10,19 @@ in optax's order of operations (`optax.scale_by_adam`, then the scale by
 step.  The fit differentiates only the plain small-n Gram; no kernel runs
 under autograd.  Nothing in the step loop reads a value on the host.
 
-Not ported yet: L-BFGS, `fit_step*`, `fit_multi`, `posterior`/`predict`
-and `ExactGP`; see ROADMAP.md.
+The episode's refits (`fit_step`, `fit_step_warm`) draw their restart
+inits from `step_inits`: a `torch.Generator` seeded from (episode seed,
+step), the counterpart of the reference's fold_in(PRNGKey(seed), step),
+so a resumed episode draws exactly the inits the uninterrupted one would.
+The streams cannot equal jax.random's; a test that holds the episode
+against the reference replaces `step_inits` with the reference's inits.
+
+The posterior (`posterior`, `predict`, the row-append growth
+`posterior_extend` and the fused pairs) serves the episode's metrics;
+`predict` builds its cross-covariance with the Gram kernel of `ops.gram`
+(the plain version for CPU tensors).
+
+Not ported yet: L-BFGS and `fit_multi`; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,8 +34,10 @@ import numpy as np
 import torch
 
 from algp_tpu_torch.config import FitConfig
+from algp_tpu_torch.device import resolve_device
 from algp_tpu_torch.ops import linalg as la
-from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram
+from algp_tpu_torch.ops.gram import gram_kernel
+from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
 
 _LOG2PI = 1.8378770664093453
 
@@ -223,9 +236,10 @@ def make_restart_inits(
     """Stacked multi-restart initial hyperparameters (restart axis
     leading).  Restart 0 is the unperturbed config init; the rest perturb
     in log space with draws from `generator` (seed 0 on `device` if
-    None)."""
+    None; `device` None is the card, and the CPU only when asked for)."""
     if generator is None:
-        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        generator = torch.Generator(
+            device=resolve_device(device)).manual_seed(0)
     base = dict(
         ls_spatial=cfg.init_ls_spatial,
         ls_feature=cfg.init_ls_feature,
@@ -259,3 +273,232 @@ def fit(
     if inits is None:
         inits = make_restart_inits(spec, cfg, generator, device=x.device)
     return _fit_batched(spec, cfg, x, y, noise_scale, inits, num_valid)
+
+
+# ---------------------------------------------------------------------------
+# Episode refits
+# ---------------------------------------------------------------------------
+
+
+def step_inits(
+    spec: KernelSpec, cfg: FitConfig, seed: int, step: int, device
+) -> KernelParams:
+    """Restart inits of the refit at episode step `step`: draws from a
+    generator seeded by (seed, step) alone, so a resumed run repeats
+    them."""
+    mixed = int(np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+    gen = torch.Generator(device=device).manual_seed(mixed)
+    return make_restart_inits(spec, cfg, gen)
+
+
+def fit_step(
+    spec: KernelSpec,
+    cfg: FitConfig,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_scale: Optional[torch.Tensor],
+    seed: int,
+    step: int,
+    num_valid=None,
+) -> FitResult:
+    """The episode's refit at `step`: `fit` from `step_inits`."""
+    inits = step_inits(spec, cfg, seed, step, x.device)
+    return _fit_batched(spec, cfg, x, y, noise_scale, inits, num_valid)
+
+
+def refit_cfg(cfg: FitConfig) -> FitConfig:
+    """The FitConfig a warm refit runs under: `refit_iters` /
+    `refit_restarts` override `iters` / `restarts` when set (0 keeps the
+    full-fit value); the identity when warm refits are off."""
+    if not (cfg.refit_iters or cfg.refit_restarts):
+        return cfg
+    return dataclasses.replace(
+        cfg,
+        iters=cfg.refit_iters or cfg.iters,
+        restarts=cfg.refit_restarts or cfg.restarts,
+    )
+
+
+def fit_step_warm(
+    spec: KernelSpec,
+    cfg: FitConfig,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_scale: Optional[torch.Tensor],
+    seed: int,
+    step: int,
+    incumbent: KernelParams,
+    num_valid=None,
+) -> FitResult:
+    """`fit_step` with a warm restart 0: the incumbent params replace the
+    unperturbed init, and `refit_cfg` shrinks iters / restarts.  Best-ever
+    tracking evaluates the incumbent before its first update, so a warm
+    refit never ends worse than where it started."""
+    rcfg = refit_cfg(cfg)
+    inits = step_inits(spec, rcfg, seed, step, x.device)
+    inits = KernelParams(**{
+        f.name: torch.cat([getattr(incumbent, f.name)[None].to(x.device),
+                           getattr(inits, f.name)[1:]])
+        for f in dataclasses.fields(KernelParams)
+    })
+    return _fit_batched(spec, rcfg, x, y, noise_scale, inits, num_valid)
+
+
+# ---------------------------------------------------------------------------
+# Posterior: predictive mean / variance over the grid
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Posterior:
+    """Cached GP posterior: factor + weights over the training set.
+
+    L     : (n, n) lower Cholesky of K(X,X) + diag(noise), identity-padded
+    alpha : (n,)   K⁻¹ y  (0 in the padding)
+    x     : (n, d) training inputs
+    mask  : (n,)   1.0 for real training points, 0.0 for padding
+    """
+
+    L: torch.Tensor
+    alpha: torch.Tensor
+    x: torch.Tensor
+    mask: torch.Tensor
+
+
+def posterior(
+    spec: KernelSpec,
+    params: KernelParams,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise_scale: Optional[torch.Tensor] = None,
+    *,
+    min_noise: float = 1e-3,
+    jitter: float = 1e-6,
+    num_valid=None,
+) -> Posterior:
+    """Factor the (identity-padded beyond `num_valid`) training system."""
+    n = x.shape[0]
+    nv = effective_noise_var(params, min_noise, noise_scale)
+    K = _masked_gram_with_noise(spec, params, x, nv, jitter, num_valid)
+    if num_valid is not None:
+        mask = (torch.arange(n, device=x.device) < num_valid).to(torch.float32)
+        y = y * mask
+    else:
+        mask = torch.ones((n,), dtype=torch.float32, device=x.device)
+    L = la.cholesky(K)
+    return Posterior(L=L, alpha=la.cho_solve(L, y), x=x, mask=mask)
+
+
+def predict(
+    spec: KernelSpec, params: KernelParams, post: Posterior, x_test: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and variance at `x_test`:
+    μ* = K*ᵀ α,  σ²* = k** − colsum(V²),  V = L⁻¹K*.  K* is the Gram
+    kernel's (the reference's large-grid Pallas call); the trisolve takes
+    the whole (n, N) right-hand side at once."""
+    Ks = gram_kernel(spec, params, post.x, x_test)
+    Ks = Ks * post.mask[:, None]  # zero rows for identity-padded slots
+    mean = Ks.T @ post.alpha
+    V = la.solve_triangular(post.L, Ks)
+    var = gram_diag(spec, params, x_test) - torch.sum(V * V, dim=0)
+    return mean, torch.clamp_min(var, 0.0)
+
+
+def posterior_extend(
+    spec: KernelSpec,
+    params: KernelParams,
+    post: Posterior,
+    x_pad: torch.Tensor,
+    y_pad: torch.Tensor,
+    new_nv: torch.Tensor,
+    m0: int,
+    k_count: int,
+    *,
+    jitter: float = 1e-6,
+) -> Posterior:
+    """Grow a cached posterior by the step's new samples without
+    refactorizing: rows m0 … m0+k_count−1 are appended one at a time with
+    `linalg.chol_append_row` (O(k·n²)), then α is re-solved.
+
+    x_pad/y_pad : the full padded training buffers (new samples already
+                  at slots [m0, m0+k_count))
+    new_nv      : (k_max,) noise variance of each new sample (entries
+                  ≥ k_count ignored)
+    """
+    n_max = x_pad.shape[0]
+    idx = torch.arange(n_max, device=x_pad.device)
+    L = post.L.clone()  # the cached factor stays as it was
+    for t in range(k_count):
+        m = m0 + t
+        xs = x_pad[m: m + 1]
+        k_vec = torch.where(idx < m, gram(spec, params, x_pad, xs)[:, 0], 0.0)
+        k_ss = gram_diag(spec, params, xs)[0] + new_nv[t] + jitter
+        la.chol_append_row(L, m, k_vec, k_ss)
+    mask = (idx < m0 + k_count).to(torch.float32)
+    alpha = la.cho_solve(L, y_pad * mask)
+    return Posterior(L=L, alpha=alpha, x=x_pad, mask=mask)
+
+
+def posterior_and_predict(
+    spec, params, x, y, noise_scale, x_test, *, min_noise=1e-3, jitter=1e-6,
+    num_valid=None,
+):
+    """`posterior` + `predict`: (Posterior, mean, var)."""
+    post = posterior(spec, params, x, y, noise_scale, min_noise=min_noise,
+                     jitter=jitter, num_valid=num_valid)
+    mean, var = predict(spec, params, post, x_test)
+    return post, mean, var
+
+
+def extend_and_predict(
+    spec, params, post, x_pad, y_pad, new_nv, m0, k_count, x_test, *,
+    jitter=1e-6,
+):
+    """`posterior_extend` + `predict` (the between-refit episode step)."""
+    post = posterior_extend(spec, params, post, x_pad, y_pad, new_nv, m0,
+                            k_count, jitter=jitter)
+    mean, var = predict(spec, params, post, x_test)
+    return post, mean, var
+
+
+class ExactGP:
+    """Stateful façade over the functional core (`fit(x, y)` /
+    `predict(x*)`).  Inputs go to `device`: the card unless the caller
+    asks for the CPU."""
+
+    def __init__(self, spec: KernelSpec, fit_config: Optional[FitConfig] = None,
+                 device=None):
+        self.spec = spec
+        self.fit_config = fit_config or FitConfig()
+        self.device = resolve_device(device)
+        self.params: Optional[KernelParams] = None
+        self.post: Optional[Posterior] = None
+
+    def _t(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def fit(self, x, y, noise_scale=None, generator=None,
+            inits: Optional[KernelParams] = None) -> FitResult:
+        x, y = self._t(x), self._t(y)
+        ns = None if noise_scale is None else self._t(noise_scale)
+        res = fit(self.spec, self.fit_config, x, y, ns, generator=generator,
+                  inits=inits)
+        self.set_params(res.params, x, y, ns)
+        return res
+
+    def set_params(self, params: KernelParams, x, y, noise_scale=None):
+        """Condition on data with given (already-fitted) hyperparameters."""
+        ns = None if noise_scale is None else self._t(noise_scale)
+        self.params = params
+        self.post = posterior(
+            self.spec, params, self._t(x), self._t(y), ns,
+            min_noise=self.fit_config.min_noise, jitter=self.fit_config.jitter,
+        )
+
+    def predict(self, x_test):
+        if self.post is None:
+            raise RuntimeError("fit() or set_params() first")
+        return predict(self.spec, self.params, self.post, self._t(x_test))

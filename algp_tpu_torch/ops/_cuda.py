@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of `algp_tpu_torch/csrc`.
 
-All `csrc/*.cu` files are compiled at first use by nvcc into one shared
-library with a plain C interface, loaded with ctypes:
+All `csrc/*.cu` files are compiled at first use by nvcc, one process
+per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<kernel>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library goes to `build/algp_tpu_torch/<hash>/` at the repository
 root (git-ignored), keyed by a hash of the sources and the flags, so an
@@ -31,9 +33,9 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "algp_tpu_torch"
 LIB_NAME = "libalgp_tpu_kernels.so"
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # register / shared-memory / spill report, kept in build.log
     "-Xptxas", "-v",
 )
@@ -48,6 +50,9 @@ _SIGNATURES = {
     # W, j, partial, out, n, stream
     "algp_wtw_column": (_I, [_P, _P, _P, _P, _I, _P]),
     "algp_wtw_splits": (_I, [_I]),
+    # A (in place), winv scratch, n, stream
+    "algp_cholesky": (_I, [_P, _P, _I, _P]),
+    "algp_chol_scratch": (_I, []),
     "algp_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -86,16 +91,31 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (
-        f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.2f} s, "
-        f"exit {proc.returncode}\n{proc.stdout}{proc.stderr}"
-    )
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):  # one nvcc per source, in parallel
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(out_dir / f"{src.stem}.{tag}.o"),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], False
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n{out}")
+        failed |= proc.returncode != 0
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *(c[-2] for c, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n# exit {proc.returncode}\n"
+                   f"{proc.stdout}{proc.stderr}")
+        failed = proc.returncode != 0
+    for cmd, _ in jobs:
+        Path(cmd[-2]).unlink(missing_ok=True)
+    log = f"# {time.perf_counter() - t0:.2f} s\n" + "\n".join(log)
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
         raise BuildError(f"nvcc failed building algp_tpu_torch kernels:\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing

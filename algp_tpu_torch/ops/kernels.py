@@ -152,16 +152,19 @@ def scaled_sqdist(
 def gram(
     spec: KernelSpec, params: KernelParams, x1: torch.Tensor, x2: torch.Tensor
 ) -> torch.Tensor:
-    """Cross-covariance matrix K(X1, X2), (..., n1, n2), no noise."""
+    """Cross-covariance matrix K(X1, X2), (..., n1, n2), no noise.  The
+    inputs may carry leading batch dims too (the episode's per-set
+    blocks, (S, k, dim))."""
     ks = stationary_form(
         spec.spatial_kind,
-        scaled_sqdist(x1[:, : spec.ds], x2[:, : spec.ds], params.log_ls_spatial),
+        scaled_sqdist(x1[..., : spec.ds], x2[..., : spec.ds],
+                      params.log_ls_spatial),
     )
     if spec.df:
         kf = stationary_form(
             spec.feature_kind,
             scaled_sqdist(
-                x1[:, spec.ds :], x2[:, spec.ds :], params.log_ls_feature
+                x1[..., spec.ds :], x2[..., spec.ds :], params.log_ls_feature
             ),
         )
         ks = ks * kf

@@ -6,9 +6,10 @@ factor comes back as NaN, as `jnp.linalg.cholesky` returns it, instead of
 raising — so no loop reads `info` on the host.  Leading batch dimensions
 are supported throughout (the fit's restarts).
 
-Not ported yet: the panel-blocked solves (`blocked_solve_triangular`),
-`solve_triangular_matmul`, `spd_inverse*` and the row-append factor
-growth; see ROADMAP.md.
+Not ported yet: the panel-blocked solves (`blocked_solve_triangular`:
+the card's memory holds the episode's whole (cap, N) right-hand side),
+`solve_triangular_matmul` (the ≥ 2²⁰-candidate conditioning) and
+`spd_inverse*` (only the reference's tests call them); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -87,3 +88,23 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     Wᵀ = (Lᵀ)⁻¹ and W is that result's transpose view, row-major with no
     copy (the precision-column kernel reads W by rows)."""
     return torch.linalg.solve_triangular(L.mT, _eye_like(L), upper=True).mT
+
+
+def chol_append_row(
+    L_pad: torch.Tensor, m: int, k_vec: torch.Tensor, k_ss: torch.Tensor
+) -> torch.Tensor:
+    """Grow an identity-padded Cholesky factor by one point, O(n_max²),
+    writing row m of `L_pad` in place (and returning it).
+
+    The leading m×m block of `L_pad` factors K_AA; `k_vec` holds the new
+    point's cross-covariances (entries ≥ m must be 0) and `k_ss` its
+    self-covariance:  c = L⁻¹ k_vec,  d = sqrt(max(k_ss − cᵀc, 1e-12)).
+    Rows/cols ≥ m are identity, so the full-size solve acts as the
+    leading-block solve."""
+    n_max = L_pad.shape[-1]
+    c = solve_triangular(L_pad, k_vec, lower=True)
+    idx = torch.arange(n_max, device=L_pad.device)
+    c = torch.where(idx < m, c, 0.0)
+    d = torch.sqrt(torch.clamp_min(k_ss - torch.dot(c, c), 1e-12))
+    L_pad[m] = torch.where(idx == m, d, c)
+    return L_pad

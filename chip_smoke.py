@@ -22,25 +22,54 @@ script exits non-zero and never prints the final line:
   7. layers   — the main path's layers timed one by one
   8. profile  — one episode under torch.profiler: device busy share and
                 the kernels by device time
-  9. kernels  — one JSON line for all kernels
+  9. episode  — the config-5 episode `c5_10k` (100×100 field, exact MI
+                planner) through `algp_tpu_torch.cli.main` in this process,
+                once to warm up and once timed: steps, samples, budget,
+                RMSE and held-out RMSE at the pilot and at the end,
+                calibration, plan / refit-step ms, launches, peak memory,
+                device→host syncs per planning step
+ 10. chol     — the Cholesky kernel vs its plain version (cuSOLVER) and an
+                f64 factor at n = 997 (ragged), the episode's 10 000 seed
+                and the main path's 10 240 seed: residuals, errors, NaN on
+                a non-SPD input, the W = L⁻¹ columns the seed serves;
+                times
+ 11. kernels  — one JSON line for all kernels: launches on the paths, error
+                against the plain version, kernel / plain / library ms and
+                the card's bound
+Each path (main, episode, the Cholesky seed path) runs with the kernel
+counts set to 0 just before it and read just after.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "chip_smoke"  # the episode runs' metrics and states
 REPS = 5
 GRID = 100  # the main path's field is GRID × GRID (bench.py: 100 × 100)
+EPISODE_ARGS = ["--preset", "c5_10k"]  # the episode phase's command line
+# the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
+# and FP32 flop/s outside the tensor cores
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time the card could take (ms) and what bounds it."""
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def emit(phase: str, **fields) -> None:
@@ -157,9 +186,14 @@ def phase_gram(dev) -> dict:
     plain_ms = cuda_ms(lambda: G.gram_reference(spec, p, x, x), reps=5)
     gbps = x.shape[0] ** 2 * 4 / (ms * 1e-3) / 1e9
     results.append({"spec": "rbf", "shape": [x.shape[0]] * 2, "max_abs_err": err})
+    n = x.shape[0]
+    # each output written once, inputs read once; per entry ds subtracts,
+    # multiplies and adds, the exp and the scale
+    bound_ms, bound_by = bound(4 * (n * n + 2 * n * spec.dim), n * n * (3 * spec.ds + 3))
     emit("gram", cases=results, tol="2e-6*s2", ms=ms, plain_ms=plain_ms,
-         write_GBps=round(gbps, 1))
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+         write_GBps=round(gbps, 1), bound_ms=bound_ms)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_wtw(dev) -> dict:
@@ -186,6 +220,7 @@ def phase_wtw(dev) -> dict:
                 jt = torch.tensor(j, device=dev)
                 out[j] = (cuda_ms(lambda: U.wtw_column(W, jt), 50),
                           cuda_ms(lambda: U.wtw_column_reference(W, jt), 50))
+            library_ms = cuda_ms(lambda: W[:, 0] @ W, 50)  # one PyTorch call
         del W
     # bytes the kernel must read at j: the lower triangle from row j on
     gb_read = lambda j: ((10240 - j) * (10240 + j + 1) / 2) * 4 / 1e9
@@ -194,7 +229,10 @@ def phase_wtw(dev) -> dict:
                                  "kernel_GBps": round(gb_read(j) / (k * 1e-3), 1)}
                       for j, (k, p) in out.items()})
     k0, p0 = out[0]
-    return {"max_abs_err": worst_abs, "ms": k0, "plain_ms": p0}
+    # j = 0: the whole lower triangle read once, one multiply-add per entry
+    bound_ms, bound_by = bound(gb_read(0) * 1e9 + 4 * 10240, 10240 * 10241)
+    return {"max_abs_err": worst_abs, "ms": k0, "plain_ms": p0,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def load_oracle():
@@ -264,7 +302,7 @@ def phase_main(dev, oracle, card: str) -> dict:
     fitcfg = FitConfig(iters=100, restarts=4)
     rounds, num_pilot = 50, 32
 
-    G.LAUNCHES = U.LAUNCHES = 0
+    _zero_counts()
     env = FieldEnv(FieldConfig(num_rows=GRID, num_cols=GRID, true_ls_spatial=8.0,
                                seed=0), spec, device=dev)
     n = env.n
@@ -289,13 +327,15 @@ def phase_main(dev, oracle, card: str) -> dict:
         fit_res, nll, sel = episode(rep)
         dt = (time.perf_counter() - t0) * 1e3
         per_episode.append((G.LAUNCHES - g0, U.LAUNCHES - u0))
+        if _counts()["cholesky"]:
+            raise AssertionError("the main path launched the Cholesky kernel")
         if rep:  # rep 0 is the warm-up
             times.append(dt)
         if not np.isfinite(nll):
             raise AssertionError(f"non-finite NLL {nll}")
         if len(np.unique(sel)) != rounds or not (sel < n).all() or (sel < 0).any():
             raise AssertionError(f"bad selection {sel}")
-    launches = {"gram": G.LAUNCHES, "wtw_column": U.LAUNCHES}
+    launches = _counts()
     for g, u in per_episode:
         if g < 1 or u != rounds:
             raise AssertionError(f"episode launches gram {g}, wtw {u}")
@@ -318,7 +358,7 @@ def phase_main(dev, oracle, card: str) -> dict:
          first_selected=sel[:10].tolist(), card=card)
     return {"env": env, "x_pilot": x_pilot, "y_pilot": y_pilot,
             "pilot_j": pilot_j, "launches": launches, "params": p,
-            "episode": episode}
+            "episode": episode, "selected": sel, "min_noise": fitcfg.min_noise}
 
 
 def phase_layers(dev, main) -> None:
@@ -379,6 +419,246 @@ def phase_profile(main) -> None:
                       for k, (c, ms) in top])
 
 
+def _counts() -> dict:
+    from algp_tpu_torch.ops import chol as C
+    from algp_tpu_torch.ops import gram as G
+    from algp_tpu_torch.ops import updates as U
+
+    return {"gram": G.LAUNCHES, "wtw_column": U.LAUNCHES, "cholesky": C.LAUNCHES}
+
+
+def _zero_counts() -> None:
+    from algp_tpu_torch.ops import chol as C
+    from algp_tpu_torch.ops import gram as G
+    from algp_tpu_torch.ops import updates as U
+
+    G.LAUNCHES = U.LAUNCHES = C.LAUNCHES = 0
+
+
+def phase_episode(dev, card: str) -> dict:
+    """c5_10k through the CLI, in this process: a warm-up run, then the
+    timed run with the kernel counts zeroed just before it.  Every plan
+    call runs under torch's sync debug mode, which warns at each
+    synchronizing operation: a step may make one (its read of the
+    outputs)."""
+    from algp_tpu_torch import cli, episode
+    from algp_tpu_torch.utils import checkpoint as ckpt
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    syncs: list[int] = []
+    orig = episode.Agent._plan_and_metrics
+
+    def counted(self, st):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return orig(self, st)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+
+    def run(tag):
+        metrics, state = OUT / f"episode_{tag}.jsonl", OUT / f"episode_{tag}.npz"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*EPISODE_ARGS, "--metrics-jsonl", str(metrics),
+                           "--checkpoint", str(state)])
+        if rc != 0:
+            raise AssertionError(f"cli.main returned {rc}")
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        history = [json.loads(line) for line in metrics.read_text().splitlines()]
+        return summary, history, ckpt.load(str(state), dev)
+
+    episode.Agent._plan_and_metrics = counted
+    try:
+        t0 = time.perf_counter()
+        run("warm")
+        warm_s = time.perf_counter() - t0
+        syncs.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        summary, history, st = run("timed")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        episode.Agent._plan_and_metrics = orig
+
+    pilot = next(h for h in history if h["phase"] == "pilot")
+    plans = [h for h in history if h["phase"] == "plan"]
+    calib = next(h for h in history if h["phase"] == "calibration")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(EPISODE_ARGS))
+    n = cfg.field.num_rows * cfg.field.num_cols
+    budget, refit_every = cfg.episode.budget, cfg.episode.refit_every
+    metrics = [pilot["rmse"], pilot["rmse_test"], pilot["mean_var"],
+               summary["final_rmse"], summary["final_rmse_test"],
+               summary["mean_var"]] + [h[k] for h in plans
+                                       for k in ("rmse", "rmse_test", "mean_var")]
+    metrics += [v for k, v in calib.items() if k not in ("t_wall", "step", "phase")]
+    if not np.isfinite(metrics).all():
+        raise AssertionError(f"non-finite episode metric: {metrics}")
+    if not summary["final_rmse_test"] < pilot["rmse_test"]:
+        raise AssertionError(f"held-out RMSE did not fall: pilot {pilot['rmse_test']}, "
+                             f"final {summary['final_rmse_test']}")
+    if st.budget_left < -1e-6:
+        raise AssertionError(f"budget overdrawn: {st.budget_left}")
+    if st.sampled_idx.min() < 0 or st.sampled_idx.max() >= n:
+        raise AssertionError("a sampled index lies outside the grid")
+    if len(syncs) != len(plans) + 1 or max(syncs) > 1:
+        raise AssertionError(f"device→host syncs per planning step: {syncs}")
+    if launches["gram"] < 1:
+        raise AssertionError(f"episode launches: {launches}")
+    # step wall time from the logger's clock: a step's record follows its
+    # plan; refit steps (step % 4 == 0) also queue the fit and the seed
+    t_prev = [pilot["t_wall"]] + [h["t_wall"] for h in plans[:-1]]
+    step_ms = {h["step"]: (h["t_wall"] - t) * 1e3 for h, t in zip(plans, t_prev)}
+    refit = [v for k, v in step_ms.items() if k % refit_every == 0]
+    other = [v for k, v in step_ms.items() if k % refit_every]
+    out = dict(
+        workload="c5_10k via algp_tpu_torch.cli.main: 100x100 Matern-3/2 field "
+                 "(ls 8), 64 pilots, budget 400, 8 waypoints, 10 samples/step, "
+                 "exact MI planner, warm refits 60x2 every 4 steps",
+        steps=summary["steps"], samples=summary["n_sampled"],
+        budget_used=budget - st.budget_left, budget=budget,
+        rmse_pilot=pilot["rmse"], rmse_test_pilot=pilot["rmse_test"],
+        rmse_final=summary["final_rmse"], rmse_test_final=summary["final_rmse_test"],
+        calibration={k: v for k, v in calib.items()
+                     if k not in ("t_wall", "step", "phase")},
+        plan_ms_median=float(np.median([h["plan_s"] for h in plans])) * 1e3,
+        step_ms_median=float(np.median(other)) if other else None,
+        refit_step_ms_median=float(np.median(refit)) if refit else None,
+        episode_wall_s=wall_s, warmup_wall_s=warm_s,
+        syncs_per_plan=syncs, launches=launches,
+        peak_mem_GB=round(torch.cuda.max_memory_allocated() / 1e9, 3), card=card,
+    )
+    emit("episode", **out)
+    return {"launches": launches, "params": st.params}
+
+
+def phase_chol(dev, main_run, episode_run, card: str) -> dict:
+    """The Cholesky kernel on the seed matrices of the paths.  The seed
+    path — factor each seed with the kernel, then serve the main path's
+    50 (WᵀW) columns from W = L⁻¹ — runs with the counts zeroed; the
+    comparisons and timings come after it and do not count."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch.ops import chol as C
+    from algp_tpu_torch.ops import gram as G
+    from algp_tpu_torch.ops import linalg as la
+    from algp_tpu_torch.ops import updates as U
+    from algp_tpu_torch.ops.kernels import KernelSpec
+
+    rng = np.random.default_rng(1)
+    spec = KernelSpec("rbf", ds=2)
+    p = spec.init_params(ls_spatial=2.5, outputscale=1.0, noise=0.1, device=dev)
+    x997 = torch.tensor(rng.uniform(0, 20, (997, 2)), dtype=torch.float32, device=dev)
+    r, c = np.divmod(np.arange(GRID * GRID), GRID)
+    grid = torch.tensor(np.stack([c, r], 1), dtype=torch.float32, device=dev)
+    # the episode's seed at its final params, and the main path's (as
+    # fit_and_select builds it: padded sentinels keep nv = 1)
+    seeds = {
+        "ragged_997": G.gram_kernel_with_noise(spec, p, x997),
+        "episode_10000": acq.seed_matrix(KernelSpec("matern32", ds=2),
+                                         episode_run["params"], grid),
+    }
+    mp = main_run["params"]
+    xm = main_grid(dev)
+    nv_base = torch.clamp_min(mp.noise_var, main_run["min_noise"] ** 2)
+    nvm = torch.where(torch.arange(xm.shape[0], device=dev) < GRID * GRID, nv_base, 1.0)
+    seeds["main_10240"] = G.gram_kernel_with_noise(spec, mp, xm, nvm / mp.noise_var)
+    selected = torch.tensor(main_run["selected"], device=dev)
+
+    # the seed path
+    torch.cuda.synchronize()
+    _zero_counts()
+    hand = {k: C.cholesky(K) for k, K in seeds.items()}
+    W_h = la.tri_inv(hand["main_10240"])
+    u_h = torch.stack([U.wtw_column(W_h, j) for j in selected])
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches["cholesky"] != len(seeds) or launches["wtw_column"] != len(selected):
+        raise AssertionError(f"seed path launches: {launches}")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    cases, worst = {}, 0.0
+    for k, K in seeds.items():
+        Lh, Lp = hand[k], C.cholesky_reference(K)
+        K64 = K.double()
+        L64 = torch.linalg.cholesky(K64)
+        res = {}
+        for tag, L in (("hand", Lh), ("cusolver", Lp)):
+            L = L.double()
+            res[f"residual_{tag}"] = rel(L @ L.T, K64)
+            res[f"err_vs_f64_{tag}"] = rel(L, L64)
+        diff = float((Lh - Lp).abs().max())
+        res["max_abs_diff_hand_vs_plain"] = diff
+        worst = max(worst, diff)
+        if not np.isfinite(list(res.values())).all():
+            raise AssertionError(f"chol {k}: non-finite {res}")
+        # tolerances: the hand factor is no worse than 4× cuSOLVER's f32
+        # factor, in residual and against the f64 factor (plus a floor at
+        # f32 resolution)
+        if not res["residual_hand"] <= 4 * res["residual_cusolver"] + 1e-7:
+            raise AssertionError(f"chol {k}: residual {res}")
+        if not res["err_vs_f64_hand"] <= 4 * res["err_vs_f64_cusolver"] + 1e-6:
+            raise AssertionError(f"chol {k}: error vs f64 {res}")
+        if not diff <= (5 * res["err_vs_f64_cusolver"] + 1e-6) * float(L64.abs().max()):
+            raise AssertionError(f"chol {k}: hand vs plain {res}")
+        cases[k] = res
+        del K64, L64
+
+    # the factor serves the seed: W = L⁻¹ columns at the main path's picks
+    K = seeds["main_10240"]
+    W_c = la.tri_inv(C.cholesky_reference(K))
+    W64 = la.tri_inv(torch.linalg.cholesky(K.double()))
+    u_c = torch.stack([U.wtw_column_reference(W_c, j) for j in selected])
+    u64 = torch.stack([U.wtw_column_reference(W64, j) for j in selected])
+    seed = {"rel_hand_vs_cusolver": rel(u_h, u_c),
+            "rel_cusolver_vs_f64": rel(u_c.double(), u64),
+            "rel_hand_vs_f64": rel(u_h.double(), u64)}
+    seed_tol = 4 * seed["rel_cusolver_vs_f64"] + 1e-4
+    if not seed["rel_hand_vs_cusolver"] <= seed_tol:
+        raise AssertionError(f"seed columns from the hand factor: {seed}")
+    del W_c, W64, W_h
+
+    # a non-SPD input: NaN from the failing column on, finite before it
+    Kbad = seeds["ragged_997"].clone()
+    Kbad[500, 500] = -1.0
+    Lbad = C.cholesky(Kbad)
+    low = torch.tril(torch.ones_like(Lbad, dtype=torch.bool))
+    if not (torch.isnan(Lbad[:, 500:])[low[:, 500:]].all()
+            and torch.isfinite(Lbad[:, :500]).all()
+            and torch.isnan(C.cholesky_reference(Kbad)).any()):
+        raise AssertionError("non-SPD input: the factor is not NaN from column 500 on")
+
+    times = {}
+    for k in ("episode_10000", "main_10240"):
+        K = seeds[k]
+        times[k] = {"ms": cuda_ms(lambda: C.cholesky(K), 5),
+                    "plain_ms": cuda_ms(lambda: C.cholesky_reference(K), 5),
+                    "library_ms": cuda_ms(lambda: torch.linalg.cholesky(K), 5)}
+    n = 10240
+    bound_ms, bound_by = bound(2 * 4 * n * n, n ** 3 / 3)
+    emit("chol", cases=cases, tol={
+        "residual": "max|LL^T-K|/max|K| <= 4*cusolver + 1e-7",
+        "err_vs_f64": "max|L-L64|/max|L64| <= 4*cusolver + 1e-6",
+        "hand_vs_plain": "max|L-Lplain| <= (5*cusolver_err_vs_f64 + 1e-6)*max|L64|",
+        "seed_columns": f"rel <= 4*rel_cusolver_vs_f64 + 1e-4 = {seed_tol:.3g}"},
+        seed_columns=seed, nan_case="NaN from column 500 on, finite before",
+        times=times, seed_path_launches=launches,
+        device_launches_per_factor={k: 3 * -(-K.shape[0] // 64) - 2
+                                    for k, K in seeds.items()},
+        bound_ms_10240=bound_ms, card=card)
+    t = times["main_10240"]
+    return {"launches": launches, "max_abs_err": worst, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t["library_ms"]}
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -390,14 +670,23 @@ def main() -> None:
     main_run = phase_main(dev, oracle, smi)
     phase_layers(dev, main_run)
     phase_profile(main_run)
-    counts = main_run["launches"]
+    episode_run = phase_episode(dev, smi)
+    chol = phase_chol(dev, main_run, episode_run, smi)
+    paths = {"main": main_run["launches"], "episode": episode_run["launches"],
+             "chol_seed": chol.pop("launches")}
+
+    def entry(name, source, replaces, stats):
+        by_path = {k: v[name] for k, v in paths.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **stats}
+
     print(json.dumps({"kernels": [
-        {"name": "gram", "route": "cuda", "source": "algp_tpu_torch/csrc/gram.cu",
-         "replaces": "algp_tpu/ops/gram.py:70", "launches": counts["gram"], **gram},
-        {"name": "wtw_column", "route": "cuda",
-         "source": "algp_tpu_torch/csrc/wtw_column.cu",
-         "replaces": "algp_tpu/ops/updates.py:129",
-         "launches": counts["wtw_column"], **wtw},
+        entry("gram", "algp_tpu_torch/csrc/gram.cu", "algp_tpu/ops/gram.py:103", gram),
+        entry("wtw_column", "algp_tpu_torch/csrc/wtw_column.cu",
+              "algp_tpu/ops/updates.py:90", wtw),
+        entry("cholesky", "algp_tpu_torch/csrc/chol.cu",
+              "algp_tpu/ops/pallas_chol.py:310", chol),
     ], "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -168,3 +168,108 @@ def test_unknown_strategy_raises(rng):
                            torch.tensor(x, dtype=torch.float32), torch.full((20,), nv),
                            torch.zeros(0, dtype=torch.int64), rounds=2, num_pilot=0,
                            strategy="ucb")
+
+
+# ------------------------------------------- the episode's plan step
+
+
+def _plan_case(rng, n=90, cap=16, count=9, S=12, k_max=5):
+    """A jittered field with a padded sampled set holding a repeated node,
+    and padded path sets: zero-size paths and a set repeating a node."""
+    params, tparams, x, _, _ = setup_field(rng, n=n)
+    idx = np.zeros(cap, np.int64)
+    idx[:count] = rng.choice(n, count, replace=False)
+    idx[count - 1] = idx[2]  # a node measured twice
+    ns = np.ones(cap, np.float32)
+    ns[:count] = rng.choice([1.0, 25.0], count)
+    y = np.zeros(cap, np.float32)
+    y[:count] = rng.standard_normal(count)
+    sets = rng.integers(0, n, (S, k_max))
+    sizes = rng.integers(1, k_max + 1, S)
+    sizes[[4, 9]] = 0  # padding paths
+    sets[3, 2] = sets[3, 0]  # a path re-entering a cell
+    sizes[3] = k_max
+    sets[np.arange(k_max)[None, :] >= sizes[:, None]] = 0
+    costs = rng.uniform(2.0, 6.0, S).astype(np.float32)
+    costs[[4, 9]] = 1.0
+    f_true = rng.standard_normal(n).astype(np.float32)
+    obs = (rng.uniform(size=n) < 0.8).astype(np.float32)
+    return params, tparams, x.astype(np.float32), dict(
+        idx=idx, count=count, ns=ns, y=y, sets=sets, sizes=sizes, costs=costs,
+        f_true=f_true, obs=obs, test=1.0 - obs)
+
+
+def _plan_args(c, jax_side):
+    if jax_side:
+        return (jnp.asarray(c["idx"], jnp.int32), jnp.asarray(c["count"]),
+                jnp.asarray(c["ns"]), jnp.asarray(c["y"]),
+                jnp.asarray(c["sets"], jnp.int32), jnp.asarray(c["sizes"], jnp.int32),
+                jnp.asarray(c["costs"]))
+    return (torch.tensor(c["idx"]), c["count"], torch.tensor(c["ns"]),
+            torch.tensor(c["y"]), torch.tensor(c["sets"]), torch.tensor(c["sizes"]),
+            torch.tensor(c["costs"]))
+
+
+@pytest.mark.parametrize("strategy,utility", [("mi", "per_cost"), ("entropy", "per_cost"),
+                                              ("mi", "per_sample")])
+def test_plan_episode_step_matches_reference(rng, strategy, utility):
+    params, tparams, x, c = _plan_case(rng)
+    spec, tspec = KernelSpec("rbf", ds=2), tk.KernelSpec("rbf", ds=2)
+    kw = dict(strategy=strategy, min_noise=1e-3, nv_mult=4.0, path_utility=utility)
+    xj, xt = jnp.asarray(x), torch.tensor(x)
+    JW = TW = (None, None)
+    if strategy == "mi":
+        JW = jacq.implicit_precision_seed(spec, params, xj, min_noise=1e-3, nv_mult=4.0)
+        TW = tacq.implicit_precision_seed(tspec, tparams, xt, min_noise=1e-3,
+                                          nv_mult=4.0)
+        np.testing.assert_allclose(TW[0].numpy(), np.asarray(JW[0]), atol=1e-3)
+        assert TW[1].is_contiguous() and torch.equal(TW[1], TW[0].T)
+    jbest, jmean, jvar, jscores = jacq.plan_episode_step(
+        spec, params, xj, *_plan_args(c, True), *JW, **kw)
+    tbest, tmean, tvar, tscores = tacq.plan_episode_step(
+        tspec, tparams, xt, *_plan_args(c, False), *TW, **kw)
+    assert int(tbest) == int(jbest)
+    assert c["sizes"][int(tbest)] > 0
+    np.testing.assert_allclose(tmean.numpy(), np.asarray(jmean), atol=5e-3)
+    np.testing.assert_allclose(tvar.numpy(), np.asarray(jvar), atol=5e-3)
+    js, ts = np.asarray(jscores), tscores.numpy()
+    assert np.isfinite(ts).all() and np.isfinite(js).all()
+    np.testing.assert_allclose(ts, js, rtol=5e-3, atol=5e-3)
+
+    # the on-device metrics variant reduces the same step against a truth
+    truth = [c["f_true"], c["obs"], c["test"]]
+    jm = jacq.plan_episode_step_metrics(
+        spec, params, xj, *_plan_args(c, True), *map(jnp.asarray, truth), *JW, **kw)
+    tm = tacq.plan_episode_step_metrics(
+        tspec, tparams, xt, *_plan_args(c, False), *map(torch.tensor, truth), *TW, **kw)
+    assert int(tm[0]) == int(jm[0])
+    for a, b in zip(tm[1:], jm[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-3)
+
+
+def test_implicit_corrections_match_reference(rng):
+    params, tparams, x, c = _plan_case(rng, n=70)
+    spec, tspec = KernelSpec("rbf", ds=2), tk.KernelSpec("rbf", ds=2)
+    W, WT = jacq.implicit_precision_seed(spec, params, jnp.asarray(x))
+    tW, tWT = tacq.implicit_precision_seed(tspec, tparams, torch.tensor(x))
+    F, ZT = jacq.implicit_corrections(W, WT, jnp.asarray(c["idx"], jnp.int32),
+                                      jnp.asarray(c["count"]))
+    tF, tZT = tacq.implicit_corrections(tW, tWT, torch.tensor(c["idx"]), c["count"])
+    scale = np.abs(np.asarray(F)).max()
+    np.testing.assert_allclose(tF.numpy(), np.asarray(F), atol=2e-3 * scale)
+    np.testing.assert_allclose(tZT.numpy(), np.asarray(ZT), atol=2e-3)
+
+
+@pytest.mark.parametrize("utility", ["per_cost", "per_sample"])
+def test_path_set_argmax_matches_reference_with_ties(utility):
+    scores = np.array([1.0, 3.0, 3.0, -2.0, 9.0, 3.0], np.float32)
+    sizes = np.array([2, 3, 3, 1, 0, 3], np.int64)  # index 4 is padding
+    costs = np.array([1.5, 2.0, 2.0, 1.0, 1.0, 2.0], np.float32)
+    want = jacq.path_set_argmax(jnp.asarray(scores), jnp.asarray(sizes, jnp.int32),
+                                jnp.asarray(costs), path_utility=utility)
+    got = tacq.path_set_argmax(torch.tensor(scores), torch.tensor(sizes),
+                               torch.tensor(costs), path_utility=utility)
+    assert int(got) == int(want) == 1  # the first of three tied paths
+    with pytest.raises(ValueError):
+        tacq.path_set_argmax(torch.tensor(scores), torch.tensor(sizes),
+                             torch.tensor(costs), path_utility="per_hour")

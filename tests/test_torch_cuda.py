@@ -149,6 +149,32 @@ def test_heteroscedastic_selection_equals_f64_oracle(dev, strategy):
         _select(dev, spec, params, x, nv, pilot, 40, strategy, nv[pilot]), ref)
 
 
+def test_posterior_matches_f64_oracle(dev):
+    """Posterior mean / variance on the card (the Gram kernel's
+    cross-covariance + the triangular solve) vs the f64 oracle."""
+    from algp_tpu_torch.models import gp
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0, 12, (200, 2))
+    xs = x[:60]
+    y = rng.standard_normal(60)
+    spec = KernelSpec("rbf", ds=2)
+    params = spec.init_params(ls_spatial=2.0, outputscale=1.5, noise=0.2, device=dev)
+    post = gp.posterior(spec, params, torch.tensor(xs, dtype=torch.float32, device=dev),
+                        torch.tensor(y, dtype=torch.float32, device=dev),
+                        min_noise=1e-3, jitter=1e-6)
+    before = G.LAUNCHES
+    mean, var = gp.predict(spec, params, post,
+                           torch.tensor(x, dtype=torch.float32, device=dev))
+    assert G.LAUNCHES == before + 1
+    nv = 0.2**2 + 1e-6
+    K = oracle.gram(xs, xs, ls_spatial=2.0, outputscale=1.5) + nv * np.eye(60)
+    Kc = oracle.gram(xs, x, ls_spatial=2.0, outputscale=1.5)
+    m_ref, v_ref = oracle.posterior(K, Kc, 1.5 * np.ones(200), y)
+    np.testing.assert_allclose(mean.cpu().numpy(), m_ref, atol=5e-3)
+    np.testing.assert_allclose(var.cpu().numpy(), v_ref, atol=5e-3)
+
+
 def test_fit_and_select_on_card_equals_cpu(dev):
     """The whole slice at N = 700 (ragged, 512-aligned to 1024): the card
     and the CPU pick the same candidates from the same inits."""
@@ -173,3 +199,153 @@ def test_fit_and_select_on_card_equals_cpu(dev):
     (nll_c, sel_c), (nll_g, sel_g) = out["cpu"], out[str(dev)]
     assert nll_g == pytest.approx(nll_c, rel=1e-4)
     np.testing.assert_array_equal(sel_g, sel_c)
+
+
+# ------------------------------------------------ the Cholesky kernel
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 200, 997])
+def test_cholesky_kernel_matches_plain(dev, n):
+    from algp_tpu_torch.ops import chol as C
+
+    rng = np.random.default_rng(n)
+    spec = KernelSpec("matern32", ds=2)
+    p = spec.init_params(ls_spatial=3.0, outputscale=1.3, noise=0.1, device=dev)
+    x = torch.tensor(rng.uniform(0, 15, (n, 2)), dtype=torch.float32, device=dev)
+    K = G.gram_kernel_with_noise(spec, p, x)
+    K0 = K.clone()
+    before = C.LAUNCHES
+    L = C.cholesky(K)
+    assert C.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(K, K0)  # the input is not modified
+    ref = C.cholesky_reference(K)
+    assert (torch.triu(L, 1) == 0).all()
+    # f32 factors of a system with noise variance 1e-2: agree to 1e-4
+    assert (L - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    res = (L.double() @ L.double().T - K.double()).abs().max().item()
+    assert res <= 1e-5 * K.abs().max().item()
+
+
+def test_cholesky_kernel_non_spd_is_nan_from_the_failing_column(dev):
+    from algp_tpu_torch.ops import chol as C
+
+    n, bad = 300, 130
+    A = torch.randn((n, n), generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    K = A @ A.T / n + torch.eye(n, device=dev)
+    K[bad, bad] = -1.0
+    L = C.cholesky(K)
+    low = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
+    assert torch.isfinite(L[:, :bad]).all()
+    assert torch.isnan(L[:, bad:])[low[:, bad:]].all()
+    assert (torch.triu(L, 1) == 0).all()
+    assert torch.isnan(C.cholesky_reference(K))[low].all()  # NaN throughout
+    with pytest.raises(ValueError):
+        C.cholesky(K.double())
+
+
+# ------------------------------------------------------- the episode
+
+
+def _episode_cfg(strategy, **ep):
+    from algp_tpu_torch import config as tc
+
+    return tc.ExperimentConfig(
+        kernel=KernelSpec("matern32", ds=2),
+        field=tc.FieldConfig(num_rows=8, num_cols=12, seed=3),
+        fit=tc.FitConfig(iters=10, restarts=2, refit_iters=5, refit_restarts=2),
+        acquisition=tc.AcquisitionConfig(strategy=strategy),
+        episode=tc.EpisodeConfig(**{**dict(num_pilot=8, budget=24.0,
+                                           refit_every=2, seed=3), **ep}),
+    )
+
+
+@pytest.fixture
+def cpu_inits(monkeypatch):
+    """Both devices fit from the same inits: the CPU generator's draws,
+    moved to the episode's device."""
+    from algp_tpu_torch.models import gp
+
+    orig = gp.step_inits
+    monkeypatch.setattr(gp, "step_inits", lambda spec, cfg, seed, step, device: orig(
+        spec, cfg, seed, step, "cpu").map(lambda a: a.to(device)))
+
+
+@pytest.mark.parametrize("strategy", ["mi", "entropy", "uniform", "naive"])
+def test_small_episode_on_card_equals_cpu(dev, cpu_inits, strategy):
+    from algp_tpu_torch.convert import field_env_like
+    from algp_tpu_torch.episode import Agent
+    from algp_tpu_torch.field import FieldEnv
+
+    cfg = _episode_cfg(strategy)
+    env_c = FieldEnv(cfg.field, cfg.kernel, device="cpu")
+    env_g = field_env_like(env_c, dev)
+    res_c = Agent(env_c, cfg).run()
+    res_g = Agent(env_g, cfg).run()
+    np.testing.assert_array_equal(res_g.state.sampled_idx, res_c.state.sampled_idx)
+    for hc, hg in zip(res_c.history, res_g.history):
+        if "rmse" in hc:
+            assert hg["rmse"] == pytest.approx(hc["rmse"], rel=1e-3)
+
+
+@pytest.mark.parametrize("strategy", ["entropy", "mi"])
+def test_c5_fused_plan_metrics_match_posterior(dev, strategy):
+    """The fused step's posterior mean / variance equal the standalone
+    gp.posterior_and_predict on the card at every step of a real episode,
+    and its path choice equals the CPU plan's from the same state."""
+    import dataclasses
+
+    from algp_tpu_torch.convert import field_env_like
+    from algp_tpu_torch.episode import Agent
+    from algp_tpu_torch.field import FieldEnv
+    from algp_tpu_torch.models import gp
+
+    cfg = _episode_cfg(strategy, num_pilot=6, num_waypoints=4, samples_per_step=4,
+                       seed=5, modality="mixed")
+    env = FieldEnv(dataclasses.replace(cfg.field, num_rows=6, num_cols=10, seed=37),
+                   cfg.kernel, device=dev)
+    agent = Agent(env, cfg)
+    twin = Agent(field_env_like(env, "cpu"), cfg)
+    checked = {"n": 0}
+    orig = agent._plan_and_metrics
+
+    def checking(st):
+        bundle = orig(st)
+        if len(bundle.nodes) == 0:
+            return bundle
+        x, y, ns, m = agent._padded_train(st)
+        _, mean_ref, var_ref = gp.posterior_and_predict(
+            agent.spec, st.params, x, y, ns, agent._Xdev,
+            min_noise=cfg.fit.min_noise, jitter=cfg.fit.jitter, num_valid=m,
+        )
+        np.testing.assert_allclose(bundle.mean, mean_ref.cpu().numpy(), atol=2e-3)
+        np.testing.assert_allclose(bundle.var, var_ref.cpu().numpy(), atol=2e-3)
+        st_cpu = dataclasses.replace(st, params=st.params.map(lambda a: a.cpu()))
+        assert twin._plan_and_metrics(st_cpu).sites == bundle.sites
+        checked["n"] += 1
+        return bundle
+
+    agent._plan_and_metrics = checking
+    result = agent.run(max_steps=5)
+    assert checked["n"] >= 3
+    assert np.isfinite(result.rmse)
+
+
+def test_episode_resume_on_card_continues_exactly(dev, tmp_path):
+    from algp_tpu_torch.convert import field_env_like
+    from algp_tpu_torch.episode import Agent
+    from algp_tpu_torch.field import FieldEnv
+    from algp_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = _episode_cfg("mi", num_pilot=6, budget=30.0, num_waypoints=5,
+                       samples_per_step=4, seed=2)
+    env_a = FieldEnv(cfg.field, cfg.kernel, device=dev)
+    full = Agent(field_env_like(env_a, dev), cfg).run(max_steps=10)
+    half = Agent(field_env_like(env_a, dev), cfg).run(max_steps=3)
+    path = str(tmp_path / "mid.npz")
+    ckpt.save(path, half.state)
+    resumed = Agent(field_env_like(env_a, dev), cfg).run(
+        max_steps=10, resume_from=ckpt.load(path, dev))
+    np.testing.assert_array_equal(resumed.state.sampled_idx, full.state.sampled_idx)
+    assert resumed.rmse == pytest.approx(full.rmse, abs=1e-5)

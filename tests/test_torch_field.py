@@ -22,7 +22,7 @@ CFG = dict(num_rows=8, num_cols=10, true_ls_spatial=3.0, row_spacing=1.5,
 def envs():
     ref = FieldEnv(FieldConfig(**CFG), KernelSpec("rbf", ds=2))
     before = tgram.LAUNCHES
-    got = TFieldEnv(TFieldConfig(**CFG), TKernelSpec("rbf", ds=2))
+    got = TFieldEnv(TFieldConfig(**CFG), TKernelSpec("rbf", ds=2), device="cpu")
     assert tgram.LAUNCHES == before  # CPU: the plain Gram
     return ref, got
 
@@ -68,4 +68,4 @@ def test_collect_noise_matches_reference(envs):
 ])
 def test_unported_field_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFieldEnv(TFieldConfig(num_rows=3, num_cols=4, **kw))
+        TFieldEnv(TFieldConfig(num_rows=3, num_cols=4, **kw), device="cpu")

@@ -1,6 +1,6 @@
-"""algp_tpu_torch stands alone: it never imports JAX (the machine with
-the card has none), nor Triton at import, and it keeps out of the paths
-that would not be a port of the reference's kernels."""
+"""algp_tpu_torch stands alone: it never imports JAX or networkx (the
+machine with the card has neither), nor Triton at import, and it keeps out
+of the paths that would not be a port of the reference's kernels."""
 
 import io
 import subprocess
@@ -18,10 +18,13 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import algp_tpu_torch, algp_tpu_torch.acquisition, algp_tpu_torch.field\n"
-        "import algp_tpu_torch.convert, algp_tpu_torch.ops\n"
+        "import algp_tpu_torch.convert, algp_tpu_torch.ops, algp_tpu_torch.ops.chol\n"
+        "import algp_tpu_torch.cli, algp_tpu_torch.episode, algp_tpu_torch.planning\n"
+        "import algp_tpu_torch.native, algp_tpu_torch.utils.checkpoint\n"
+        "import algp_tpu_torch.utils.metrics\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'optax', 'algp_tpu', 'triton')]\n"
+        "'optax', 'algp_tpu', 'triton', 'networkx')]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
