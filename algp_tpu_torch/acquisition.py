@@ -208,7 +208,7 @@ def _greedy_select(
     if strategy == "mi":
         # implicit complement precision P_t = WᵀW − F·G (never N×N dense)
         K = gram_kernel_with_noise(spec, params, x, nv / params.noise_var)
-        W = la.tri_inv(la.cholesky(K))
+        W = la.tri_inv(_seed_factor(K))
         del K
         pdiag = torch.sum(W * W, dim=0)  # diag(WᵀW) = column sums of W²
         F = torch.zeros((N, T), dtype=torch.float32, device=dev)
@@ -591,8 +591,15 @@ def plan_episode_step_metrics(
 # ---------------------------------------------------------------------------
 
 
+#: The MI seed's factor L of K + σ²I, both paths (all NaN if it failed).
+#: The library factor: the hand-written kernel of `ops.chol` is faster on
+#: the H100 but picks other candidates where the MI scores tie within f32
+#: noise, so it is not wired in (PERF.md §6).
+_seed_factor = la.cholesky
+
+
 def _seed(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    W = la.tri_inv(la.cholesky(K))
+    W = la.tri_inv(_seed_factor(K))
     # WT materialised row-major, once per refit: the per-set blocks are
     # row gathers of it (W.mT would make each a strided column gather)
     return W, W.mT.contiguous()

@@ -50,9 +50,11 @@ _SIGNATURES = {
     # W, j, partial, out, n, stream
     "algp_wtw_column": (_I, [_P, _P, _P, _P, _I, _P]),
     "algp_wtw_splits": (_I, [_I]),
-    # A (in place), winv scratch, n, stream
-    "algp_cholesky": (_I, [_P, _P, _I, _P]),
-    "algp_chol_scratch": (_I, []),
+    # A (in place, N × N), transposed-panel scratch, inverse scratch, N, stream
+    "algp_cholesky": (_I, [_P, _P, _P, _I, _P]),
+    "algp_chol_tile": (_I, []),
+    "algp_chol_lt_floats": (ctypes.c_longlong, [_I]),
+    "algp_chol_w_floats": (_I, []),
     "algp_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -31,8 +31,12 @@ script exits non-zero and never prints the final line:
  10. chol     — the Cholesky kernel vs its plain version (cuSOLVER) and an
                 f64 factor at n = 997 (ragged), the episode's 10 000 seed
                 and the main path's 10 240 seed: residuals, errors, NaN on
-                a non-SPD input, the W = L⁻¹ columns the seed serves;
-                times
+                a non-SPD input, the W = L⁻¹ columns the seed serves; the
+                seed comparison (the main path's 50 MI selections seeded by the
+                kernel, by cuSOLVER and by an f64 factor, and where they
+                part, the tied scores); kernel and library times in turns,
+                the torch.profiler split of one factorization by kernel,
+                launches per factorization, TFLOP/s and share of the bound
  11. kernels  — one JSON line for all kernels: launches on the paths, error
                 against the plain version, kernel / plain / library ms and
                 the card's bound
@@ -126,8 +130,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _cuda.library()
     secs = time.perf_counter() - t0
-    ptxas = [l.split("ptxas info    : ")[-1] for l in _cuda.build_log().splitlines()
-             if "registers" in l or "spill" in l]
+    ptxas = [l.split("ptxas info    : ")[-1].strip() for l in _cuda.build_log().splitlines()
+             if "registers" in l or "spill" in l or "Compiling entry" in l]
     emit("build", seconds=round(secs, 3), ptxas=ptxas)
 
 
@@ -235,8 +239,8 @@ def phase_wtw(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def load_oracle():
-    spec = importlib.util.spec_from_file_location("oracle", ROOT / "tests" / "oracle.py")
+def load_module(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -322,13 +326,11 @@ def phase_main(dev, oracle, card: str) -> dict:
 
     times, per_episode = [], []
     for rep in range(REPS + 1):
-        g0, u0 = G.LAUNCHES, U.LAUNCHES
+        c0 = _counts()
         t0 = time.perf_counter()
         fit_res, nll, sel = episode(rep)
         dt = (time.perf_counter() - t0) * 1e3
-        per_episode.append((G.LAUNCHES - g0, U.LAUNCHES - u0))
-        if _counts()["cholesky"]:
-            raise AssertionError("the main path launched the Cholesky kernel")
+        per_episode.append(tuple(v - c0[k] for k, v in _counts().items()))
         if rep:  # rep 0 is the warm-up
             times.append(dt)
         if not np.isfinite(nll):
@@ -336,9 +338,9 @@ def phase_main(dev, oracle, card: str) -> dict:
         if len(np.unique(sel)) != rounds or not (sel < n).all() or (sel < 0).any():
             raise AssertionError(f"bad selection {sel}")
     launches = _counts()
-    for g, u in per_episode:
-        if g < 1 or u != rounds:
-            raise AssertionError(f"episode launches gram {g}, wtw {u}")
+    for g, u, c in per_episode:  # the seed's factor is the library's
+        if g < 1 or u != rounds or c != 0:
+            raise AssertionError(f"episode launches gram {g}, wtw {u}, cholesky {c}")
 
     # the fitted NLL agrees with the f64 oracle's at the fitted params
     p = fit_res.params
@@ -380,8 +382,8 @@ def phase_layers(dev, main) -> None:
     out["gram_with_noise_ms"] = cuda_ms(
         lambda: G.gram_kernel_with_noise(spec, p, x, nvs), 5)
     K = G.gram_kernel_with_noise(spec, p, x, nvs)
-    out["cholesky_ms"] = cuda_ms(lambda: la.cholesky(K), 3)
-    L = la.cholesky(K)
+    out["cholesky_ms"] = cuda_ms(lambda: acq._seed_factor(K), 3)
+    L = acq._seed_factor(K)
     out["tri_inv_ms"] = cuda_ms(lambda: la.tri_inv(L), 3)
     del K, L
     nv = torch.full((GRID * GRID,), float(torch.exp(2 * p.log_noise)), device=dev)
@@ -509,7 +511,8 @@ def phase_episode(dev, card: str) -> dict:
         raise AssertionError("a sampled index lies outside the grid")
     if len(syncs) != len(plans) + 1 or max(syncs) > 1:
         raise AssertionError(f"device→host syncs per planning step: {syncs}")
-    if launches["gram"] < 1:
+    # the seeds' factor is the library's: no Cholesky kernel launch
+    if launches["gram"] < 1 or launches["cholesky"] != 0:
         raise AssertionError(f"episode launches: {launches}")
     # step wall time from the logger's clock: a step's record follows its
     # plan; refit steps (step % 4 == 0) also queue the fit and the seed
@@ -635,27 +638,80 @@ def phase_chol(dev, main_run, episode_run, card: str) -> dict:
             and torch.isnan(C.cholesky_reference(Kbad)).any()):
         raise AssertionError("non-SPD input: the factor is not NaN from column 500 on")
 
+    # the seed comparison: the main path's 50 MI selections at its fitted
+    # params, seeded by the hand factor, by cuSOLVER, and by an f64 factor
+    # rounded to f32; where two differ, the scores of the two picks at the
+    # first round that differs, under each seed
+    nv = torch.full((GRID * GRID,), float(torch.exp(2 * mp.log_noise)), device=dev)
+    runs, orig = {}, acq._seed_factor
+    for tag, factor in (("hand", lambda K: C.nan_if_failed(C.cholesky(K))),
+                        ("cusolver", la.cholesky),
+                        ("f64", lambda K: torch.linalg.cholesky(K.double()).float())):
+        acq._seed_factor = factor
+        try:
+            res = acq.greedy_select(spec, mp, main_run["env"].X, nv, main_run["pilot_j"],
+                                    rounds=50, num_pilot=32, strategy="mi",
+                                    return_scores=True)
+        finally:
+            acq._seed_factor = orig
+        runs[tag] = (res.selected.cpu().numpy(), res.scores.cpu().double().numpy())
+    parting = {}
+    for a_, b_ in (("hand", "cusolver"), ("hand", "f64"), ("cusolver", "f64")):
+        diff = np.flatnonzero(runs[a_][0] != runs[b_][0])
+        if not len(diff):
+            parting[f"{a_}_vs_{b_}"] = "50/50 equal"
+            continue
+        r = int(diff[0])
+        i, j = int(runs[a_][0][r]), int(runs[b_][0][r])
+        parting[f"{a_}_vs_{b_}"] = {
+            "first_differing_round": r, "picks": [i, j],
+            "scores": {t: [float(q[r][i]), float(q[r][j])] for t, (_, q) in runs.items()},
+            "rel_gap_of_picks": {t: float((q[r][i] - q[r][j]) / abs(q[r][i]))
+                                 for t, (_, q) in runs.items()}}
+    seed_uses_kernel = acq._seed_factor is not la.cholesky
+    emit("chol_seed", seed_uses_kernel=seed_uses_kernel, selections=parting)
+    if seed_uses_kernel and parting["hand_vs_cusolver"] != "50/50 equal":
+        raise AssertionError(f"the seed uses the Cholesky kernel, but its 50 MI "
+                             f"selections differ from cuSOLVER-seeded ones: {parting}")
+
+    # times in turns (library, kernel, kernel, library), the profiler's
+    # split of one factorization, the wrapper's pad and copy at ragged n
+    tool = load_module("chol_profile", ROOT / "tools" / "chol_profile.py")
     times = {}
     for k in ("episode_10000", "main_10240"):
         K = seeds[k]
-        times[k] = {"ms": cuda_ms(lambda: C.cholesky(K), 5),
-                    "plain_ms": cuda_ms(lambda: C.cholesky_reference(K), 5),
-                    "library_ms": cuda_ms(lambda: torch.linalg.cholesky(K), 5)}
-    n = 10240
-    bound_ms, bound_by = bound(2 * 4 * n * n, n ** 3 / 3)
+        n = K.shape[0]
+        t = tool.turns(lambda: C.cholesky(K), lambda: torch.linalg.cholesky(K))
+        t["plain_ms"] = cuda_ms(lambda: C.cholesky_reference(K), 5)
+        split = tool.split(lambda: C.cholesky(K))
+        t["split"] = split
+        t["kernel_launches_per_factor"] = sum(
+            v["count"] for name, v in split["by_kernel"].items() if "chol_" in name)
+        t["bound_ms"], _ = bound(2 * 4 * n * n, n ** 3 / 3)
+        t["tflops"] = n ** 3 / 3 / (t["ms"] * 1e-3) / 1e12
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        N = -(-n // 128) * 128
+
+        def pad_and_copy():
+            A = torch.empty((N, N), device=dev)
+            A[:n, :n] = K
+            A[n:].zero_()
+            A[n:, n:].diagonal().fill_(1.0)
+            return A[:n, :n].contiguous()
+
+        t["pad_and_copy_ms"] = cuda_ms(pad_and_copy, 5) if N != n else 0.0
+        times[k] = t
     emit("chol", cases=cases, tol={
         "residual": "max|LL^T-K|/max|K| <= 4*cusolver + 1e-7",
         "err_vs_f64": "max|L-L64|/max|L64| <= 4*cusolver + 1e-6",
         "hand_vs_plain": "max|L-Lplain| <= (5*cusolver_err_vs_f64 + 1e-6)*max|L64|",
         "seed_columns": f"rel <= 4*rel_cusolver_vs_f64 + 1e-4 = {seed_tol:.3g}"},
         seed_columns=seed, nan_case="NaN from column 500 on, finite before",
-        times=times, seed_path_launches=launches,
-        device_launches_per_factor={k: 3 * -(-K.shape[0] // 64) - 2
-                                    for k, K in seeds.items()},
-        bound_ms_10240=bound_ms, card=card)
+        seed_uses_kernel=seed_uses_kernel,
+        times=times, seed_path_launches=launches, card=card)
     t = times["main_10240"]
     return {"launches": launches, "max_abs_err": worst, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": "operations",
             "library_ms": t["library_ms"]}
 
 
@@ -665,7 +721,7 @@ def main() -> None:
     phase_build()
     gram = phase_gram(dev)
     wtw = phase_wtw(dev)
-    oracle = load_oracle()
+    oracle = load_module("oracle", ROOT / "tests" / "oracle.py")
     phase_fidelity(dev, oracle)
     main_run = phase_main(dev, oracle, smi)
     phase_layers(dev, main_run)

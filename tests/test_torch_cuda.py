@@ -204,15 +204,22 @@ def test_fit_and_select_on_card_equals_cpu(dev):
 # ------------------------------------------------ the Cholesky kernel
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 200, 997])
-def test_cholesky_kernel_matches_plain(dev, n):
-    from algp_tpu_torch.ops import chol as C
-
+def _chol_seed(n, dev):
     rng = np.random.default_rng(n)
     spec = KernelSpec("matern32", ds=2)
     p = spec.init_params(ls_spatial=3.0, outputscale=1.3, noise=0.1, device=dev)
     x = torch.tensor(rng.uniform(0, 15, (n, 2)), dtype=torch.float32, device=dev)
-    K = G.gram_kernel_with_noise(spec, p, x)
+    return G.gram_kernel_with_noise(spec, p, x)
+
+
+# the edges of the 64-wide sub-steps, the 128 padding, the 256-wide strips
+# and the lookahead's second and third strips
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 200, 255, 256, 257,
+                               511, 513, 997, 2051])
+def test_cholesky_kernel_matches_plain(dev, n):
+    from algp_tpu_torch.ops import chol as C
+
+    K = _chol_seed(n, dev)
     K0 = K.clone()
     before = C.LAUNCHES
     L = C.cholesky(K)
@@ -227,10 +234,11 @@ def test_cholesky_kernel_matches_plain(dev, n):
     assert res <= 1e-5 * K.abs().max().item()
 
 
-def test_cholesky_kernel_non_spd_is_nan_from_the_failing_column(dev):
+@pytest.mark.parametrize("n,bad", [(300, 130), (700, 256), (700, 650)],
+                         ids=["inside-a-strip", "strip-boundary", "last-strip"])
+def test_cholesky_kernel_non_spd_is_nan_from_the_failing_column(dev, n, bad):
     from algp_tpu_torch.ops import chol as C
 
-    n, bad = 300, 130
     A = torch.randn((n, n), generator=torch.Generator(device=dev).manual_seed(0),
                     device=dev)
     K = A @ A.T / n + torch.eye(n, device=dev)
@@ -241,8 +249,16 @@ def test_cholesky_kernel_non_spd_is_nan_from_the_failing_column(dev):
     assert torch.isnan(L[:, bad:])[low[:, bad:]].all()
     assert (torch.triu(L, 1) == 0).all()
     assert torch.isnan(C.cholesky_reference(K))[low].all()  # NaN throughout
+    assert torch.isnan(C.nan_if_failed(L)).all()
     with pytest.raises(ValueError):
         C.cholesky(K.double())
+
+
+def test_cholesky_kernel_repeats_bitwise(dev):
+    from algp_tpu_torch.ops import chol as C
+
+    K = _chol_seed(2051, dev)
+    assert torch.equal(C.cholesky(K), C.cholesky(K))  # no atomics, fixed order
 
 
 # ------------------------------------------------------- the episode
