@@ -2,13 +2,16 @@
 
 The JAX package `algp_tpu` is the reference; this package mirrors its
 module names (ops.kernels, ops.gram, ops.updates, ops.linalg, ops.chol,
-models.gp, acquisition, field, planning, episode, cli, config, utils) with
-PyTorch idiom inside: plain functions on tensors with an explicit device,
-`torch.Generator` in place of `jax.random` keys, a written-out batch
-dimension in place of `vmap` and Python loops in place of `lax.scan` /
-`fori_loop`.  Two paths run: `acquisition.fit_and_select` and the
-config-5 episode (`episode.Agent`, `python -m algp_tpu_torch.cli`).  The
-entry points run on the CUDA card unless the caller asks for the CPU.
+models.gp, models.sparse_gp, acquisition, acquisition_lowrank, field,
+planning, episode, cli, config, utils) with PyTorch idiom inside: plain
+functions on tensors with an explicit device, `torch.Generator` in place
+of `jax.random` keys, a written-out batch dimension in place of `vmap`
+and Python loops in place of `lax.scan` / `fori_loop`.  The paths that
+run: `acquisition.fit_and_select`, its low-rank counterpart
+`acquisition_lowrank.fit_and_select_lowrank`, and the config-5 episode
+(`episode.Agent`, `python -m algp_tpu_torch.cli`) with the exact or the
+low-rank (FITC) planner and exact or SGPR refits.  The entry points run
+on the CUDA card unless the caller asks for the CPU.
 
 The reference's Pallas kernels are CUDA C++ kernels written for Hopper
 (`csrc/gram.cu`, `csrc/wtw_column.cu`, `csrc/chol.cu`), built with nvcc

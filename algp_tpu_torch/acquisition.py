@@ -26,10 +26,12 @@ current sampled set.  Per-set factorizations go through `la.cholesky`,
 so a failed one is NaN, as in the reference.  Nothing in a step reads a
 value on the host; the episode reads the step's outputs in one copy.
 
+The low-rank (FITC) planner for larger grids is `acquisition_lowrank`;
+its per-set blocks go through `score_candidate_sets(P_lowrank=...)`.
+
 Not ported yet: `cond_solve`'s explicit-inverse branch for ≥ 2²⁰
-candidates, the low-rank planner, and `plan_path_step` /
-`complement_precision` (only the reference's tests call them); see
-ROADMAP.md.
+candidates, and `plan_path_step` / `complement_precision` (only the
+reference's tests call them); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -373,8 +375,10 @@ def score_candidate_sets(
     sets: torch.Tensor,
     set_sizes: torch.Tensor,
     P_implicit: Optional[tuple] = None,
+    P_lowrank: Optional[tuple] = None,
     *,
     strategy: str = "entropy",
+    corrections_pregathered: bool = False,
 ) -> torch.Tensor:
     """Joint utility of padded candidate sets (path sample sets), batched.
 
@@ -387,15 +391,23 @@ def score_candidate_sets(
                 gathers of the row-major WT, F and ZT.  `taken` marks
                 sampled candidates, whose implicit rows are exactly zero:
                 they get the inert marker (zero row/col, diag 1)
+    P_lowrank : (VT, dinv, F, ZT, taken) — as P_implicit, with the prior
+                precision P̃0 = diag(dinv) − VT·VTᵀ of the low-rank seed
+                (acquisition_lowrank); per-set blocks are row gathers of VT
+    corrections_pregathered : F / ZT arrive already gathered at the
+                flattened set rows, (S·k_max, C)
+                (`acquisition_lowrank.lowrank_corrections_at`); an explicit
+                flag, never inferred from the shapes
 
     entropy:  information gain ½[log det(Cov_S|A + Σ_S) − log det Σ_S]
     mi:       ½[log det(Cov_S|A + Σ_S) + log det P_SS]
     Returns (S,) scores.
     """
-    if strategy == "mi" and P_implicit is None:
+    if strategy == "mi" and P_implicit is None and P_lowrank is None:
         raise ValueError(
             "score_candidate_sets(strategy='mi') needs the complement "
-            "precision — implicit_precision_seed + implicit_corrections"
+            "precision — implicit_precision_seed + implicit_corrections, "
+            "or the low-rank seed + lowrank_corrections"
         )
     S, k = sets.shape
     idx_flat = sets.reshape(-1)
@@ -404,10 +416,18 @@ def score_candidate_sets(
         return a.index_select(0, idx_flat).reshape(S, k, *a.shape[1:])
 
     if strategy == "mi":
-        WT, F, ZT, taken = P_implicit
-        Wr = rows(WT)  # (S, k, N)
-        P0 = Wr @ Wr.mT
-        Pblk = _pblk_finish(P0, rows(F), rows(ZT), rows(taken))
+        if P_implicit is not None:
+            WT, F, ZT, taken = P_implicit
+            Wr = rows(WT)  # (S, k, N)
+            P0 = Wr @ Wr.mT
+        else:
+            VT, dinv, F, ZT, taken = P_lowrank
+            P0 = _pblk_lowrank_prior(sets, rows(VT), rows(dinv))
+        if corrections_pregathered:
+            Fr, Zr = F.reshape(S, k, -1), ZT.reshape(S, k, -1)
+        else:
+            Fr, Zr = rows(F), rows(ZT)
+        Pblk = _pblk_finish(P0, Fr, Zr, rows(taken))
     else:
         Pblk = None
     Bs = basis.index_select(1, idx_flat).reshape(basis.shape[0], S, k)
@@ -415,6 +435,14 @@ def score_candidate_sets(
         spec, params, rows(x), Bs.permute(1, 0, 2), rows(nv), set_sizes, Pblk,
         strategy=strategy, sets=sets,
     )
+
+
+def _pblk_lowrank_prior(sets, Vr, dr):
+    """Per-set prior precision blocks from gathered low-rank rows:
+    P̃0_SS = −Vr·Vrᵀ, plus the D⁻¹ term wherever two slots hold the same
+    candidate (a path revisiting a node), as P̃'s own diagonal places it."""
+    same = (sets[:, :, None] == sets[:, None, :]).to(torch.float32)
+    return -(Vr @ Vr.mT) + same * dr[:, :, None]
 
 
 def _pblk_finish(P0, Fr, Zr, tk):
@@ -577,6 +605,12 @@ def plan_episode_step_metrics(
         set_sizes, costs, W, WT, strategy=strategy, min_noise=min_noise,
         nv_mult=nv_mult, path_utility=path_utility,
     )
+    return device_metrics(best, mean, d, sets, f_true, obs_mask, test_mask)
+
+
+def device_metrics(best, mean, d, sets, f_true, obs_mask, test_mask):
+    """A step's outputs reduced on the device against the truth:
+    (best, rmse, rmse_test, mean_var, var_sites)."""
     err = mean - f_true
     rmse = torch.sqrt(torch.sum(obs_mask * err * err)
                       / torch.clamp_min(torch.sum(obs_mask), 1.0))

@@ -1,18 +1,26 @@
 """Command-line experiment driver (the counterpart of algp_tpu.cli).
 
     python -m algp_tpu_torch.cli --preset c5_10k              # on the card
+    python -m algp_tpu_torch.cli --preset c5_100k             # low-rank planner
+    python -m algp_tpu_torch.cli --preset c5_long             # SGPR refits
+    python -m algp_tpu_torch.cli --preset c5_100k --mode greedy \\
+        --num-inducing 1024 --num-pilot 64 --acq-rounds 50    # greedy low-rank MI
     python -m algp_tpu_torch.cli --preset c5_episode --rows 8 --cols 12 \\
         --budget 24 --iters 10 --device cpu                   # on the CPU
 
 Flags fill the typed configs (config.py), starting from `--preset`.  The
 run goes to the card unless `--device cpu` asks for the CPU.  Modes:
 "episode" (the informative-path episode, episode.Agent) and "greedy"
-(pure greedy selection over every grid candidate, configs 3-4).
+(pure greedy selection over every grid candidate, configs 3-4; MI past
+the exact range, or with --num-inducing M > 0, goes through the low-rank
+`acquisition_lowrank.greedy_select_lowrank` over a k-center design).
+A grid of 320 × 320 needs the FITC truth (`--preset c5_100k`): the dense
+truth's 102 400² factor does not fit on the card.
 
 Not ported: `--plots` and `--profile-dir` (the reference's matplotlib
-figures and jax.profiler trace), the deep-kernel flags, and whatever the
-field and episode do not support yet (they raise NotImplementedError;
-see ROADMAP.md).
+figures and jax.profiler trace), the deep-kernel flags, `--mi-ensemble`,
+and whatever the field and episode do not support yet (they raise
+NotImplementedError; see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -136,6 +144,7 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
     RMSE.  The fits draw their inits from generators seeded (seed + run,
     0) and (seed + run, 1)."""
     from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch import acquisition_lowrank as acq_lr
     from algp_tpu_torch.models import gp as gp_mod
 
     strategy = None
@@ -145,10 +154,10 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
         env = FieldEnv(fieldc, cfg.kernel, device=device)
         if strategy is None:
             strategy, _ = resolve_strategy(cfg.acquisition.strategy, env.n)
-        if strategy == "mi" and resolve_num_inducing(
-                cfg.acquisition.num_inducing, env.n):
+        m_ind = resolve_num_inducing(cfg.acquisition.num_inducing, env.n)
+        if int(cfg.acquisition.mi_ensemble) > 1:
             raise NotImplementedError(
-                "greedy low-rank MI (num_inducing > 0) is not ported to "
+                "the z-ensemble (mi_ensemble > 1) is not ported to "
                 "algp_tpu_torch yet; see ROADMAP.md")
         log = MetricsLogger(stream)
         pilot = np.unique(np.linspace(0, env.n - 1, cfg.episode.num_pilot)
@@ -167,13 +176,23 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
         res, _, _ = fit_on(s.indices, s.y, 0)
         nv_base = float(np.maximum(
             np.exp(2 * res.params.log_noise.cpu().numpy()), cfg.fit.min_noise**2))
-        sel = acq.greedy_select(
-            cfg.kernel, res.params, env.X,
-            torch.full((env.n,), nv_base, device=env.device),
-            torch.as_tensor(s.indices, device=env.device),
-            rounds=cfg.acquisition.rounds, num_pilot=len(s.indices),
-            strategy=strategy,
-        )
+        nv = torch.full((env.n,), nv_base, device=env.device)
+        pilot_d = torch.as_tensor(s.indices, device=env.device)
+        if strategy == "mi" and m_ind:
+            # large-grid MI: low-rank complement precision over a k-center
+            # design of the candidates
+            z = env.X.index_select(
+                0, acq_lr.kcenter_indices(env.X, min(m_ind, env.n)))
+            sel = acq_lr.greedy_select_lowrank(
+                cfg.kernel, res.params, env.X, nv, pilot_d, z,
+                rounds=cfg.acquisition.rounds, num_pilot=len(s.indices),
+            )
+        else:
+            sel = acq.greedy_select(
+                cfg.kernel, res.params, env.X, nv, pilot_d,
+                rounds=cfg.acquisition.rounds, num_pilot=len(s.indices),
+                strategy=strategy,
+            )
         s2 = env.collect(sel.selected.cpu().numpy(), "precise")
         all_idx = np.concatenate([s.indices, s2.indices])
         all_y = np.concatenate([s.y, s2.y])

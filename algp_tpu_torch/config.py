@@ -3,11 +3,13 @@
 Copied as frozen dataclasses because algp_tpu.config imports JAX.  The
 field names and defaults equal the reference's, so a config built for
 one builds for the other.  The presets are the reference's for the
-configurations the port runs: c1-c4 and the config-5 episode at
-reference scale (`c5_episode`) and at the 10 000-point north-star grid
-(`c5_10k`).  The scale presets (c5_20k and up, the long campaigns) and
-the table preset need the low-rank planner, the FITC truth, SGPR refits
-or the table loader, which are not ported yet (ROADMAP.md).
+configurations the port runs: c1-c4, the config-5 episode at reference
+scale (`c5_episode`), at the 10 000-point north-star grid (`c5_10k`),
+past the exact planner's range with the low-rank planner and the FITC
+truth (`c5_20k`, `c5_100k`) and as a long campaign with SGPR refits
+(`c5_long`).  The million-point presets (`c5_1m`, `c5_4m`, `c5_1m_long`)
+need the ≥ 2²⁰-candidate solves and the table preset (`c10_table`) the
+table loader, which are not ported yet (ROADMAP.md): they are not here.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ class FitConfig:
     learn_noise: bool = True
     min_noise: float = 1e-3  # floor on noise std for f32 conditioning
     jitter: float = 1e-6
-    # Episode-scale SGPR refits (not ported yet: the Agent raises when
-    # sparse_threshold is set).
+    # Episode-scale SGPR refits (models/sparse_gp): once the sampled set
+    # exceeds sparse_threshold, refits use the collapsed −ELBO over
+    # sparse_inducing k-center points.  0 disables; needs
+    # sparse_threshold ≥ sparse_inducing.
     sparse_threshold: int = 0
     sparse_inducing: int = 256
     # Warm refits: after the pilot fit, restart 0 starts from the
@@ -106,17 +110,18 @@ class AcquisitionConfig:
     strategy: str = "mi"
     rounds: int = 50  # greedy rounds (greedy mode)
     # None = auto (resolve_num_inducing); 0 = the exact N×N implicit
-    # precision; M > 0 = the low-rank planner (not ported yet)
+    # precision; M > 0 = the low-rank planner (acquisition_lowrank)
     num_inducing: Optional[int] = None
     # "per_cost" | "per_sample" (acquisition.path_set_argmax)
     path_utility: str = "per_cost"
-    mi_ensemble: int = 1  # z-ensemble MI of the low-rank planner
+    mi_ensemble: int = 1  # z-ensemble MI of the low-rank planner (not ported)
 
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
     """Row-structured field environment.  Only the synthetic,
-    single-trait field without features is ported (field.py)."""
+    single-trait field without features is ported (field.py);
+    synth_inducing > 0 draws its truth from the FITC approximation."""
 
     num_rows: int = 25
     num_cols: int = 40
@@ -225,6 +230,41 @@ PRESETS: dict[str, ExperimentConfig] = {
         acquisition=AcquisitionConfig(strategy="mi"),
         fit=FitConfig(refit_iters=60, refit_restarts=2),
         episode=EpisodeConfig(num_pilot=64, budget=400.0, num_waypoints=8,
+                              samples_per_step=10, refit_every=4),
+    ),
+    # 5 at 2× north-star scale (140×140 = 19.6k points): past the exact
+    # range, so num_inducing=None resolves to the low-rank planner, M = 1024
+    # (--num-inducing 0 forces the exact one).
+    "c5_20k": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=140, num_cols=140, true_ls_spatial=11.0),
+        acquisition=AcquisitionConfig(strategy="mi"),
+        fit=FitConfig(refit_iters=60, refit_restarts=2),
+        episode=EpisodeConfig(num_pilot=64, budget=560.0, num_waypoints=8,
+                              samples_per_step=10, refit_every=4),
+    ),
+    # 5 at 10× north-star scale (320×320 = 102 400 points): FITC truth over
+    # 2 048 k-center points, the low-rank MI planner with M = 1 024, warm
+    # refits 100 × 3.
+    "c5_100k": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=320, num_cols=320, true_ls_spatial=25.0,
+                          synth_inducing=2048),
+        acquisition=AcquisitionConfig(strategy="mi", num_inducing=1024),
+        fit=FitConfig(refit_iters=100, refit_restarts=3),
+        episode=EpisodeConfig(num_pilot=128, budget=1280.0, num_waypoints=8,
+                              samples_per_step=10, refit_every=4),
+    ),
+    # 5 as a long campaign on the 10k grid (~160 planning steps, ~1.7k
+    # samples): past 512 sampled points every refit is the collapsed SGPR
+    # bound over 256 k-center inducing points.
+    "c5_long": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=100, num_cols=100, true_ls_spatial=8.0),
+        acquisition=AcquisitionConfig(strategy="mi"),
+        fit=FitConfig(restarts=4, sparse_threshold=512, sparse_inducing=256,
+                      refit_iters=60, refit_restarts=2),
+        episode=EpisodeConfig(num_pilot=64, budget=4800.0, num_waypoints=80,
                               samples_per_step=10, refit_every=4),
     ),
 }

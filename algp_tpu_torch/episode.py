@@ -14,14 +14,25 @@ come back in ONE device→host copy.  Uploads are non-blocking, refits and
 the per-refit MI seed are queued without waiting, so the host enumerates
 the next paths while the card works.  The Agent runs on its env's device.
 
+Planners: the exact implicit precision (W = L⁻¹ of the N × N seed) up to
+16 384 candidates, the low-rank FITC precision above
+(`resolve_num_inducing`, or `num_inducing` > 0): a k-center design of M
+points computed once per episode, the small-factor seed
+(`acquisition_lowrank.lowrank_factors_seed`) per refit, and
+`plan_episode_step_lowrank_factors` per step, with the same one read.
+Refits: the exact MLL fit, or, once the sampled set exceeds
+`FitConfig.sparse_threshold`, the collapsed SGPR bound over
+`sparse_inducing` k-center points of the sampled set
+(`models.sparse_gp`).
+
 Random streams: the fit inits of step t come from `gp.step_inits(seed,
 t)` (the reference's fold_in(PRNGKey(seed), t) cannot be reproduced in
 torch); the agent and env numpy generators are the reference's, so a
 uniform episode draws the same sites.
 
-Not ported (raise NotImplementedError, see ROADMAP.md): the low-rank
-planner and `mi_ensemble`, episode-scale SGPR refits, the deep feature
-kernel, multi-trait fields and the mesh episode.
+Not ported (raise NotImplementedError, see ROADMAP.md): `mi_ensemble`
+(the z-ensemble), the k-center sub-grid past 2²¹ candidates, the deep
+feature kernel, multi-trait fields and the mesh episode.
 """
 
 from __future__ import annotations
@@ -35,12 +46,14 @@ import numpy as np
 import torch
 
 from algp_tpu_torch import acquisition as acq
+from algp_tpu_torch import acquisition_lowrank as acq_lr
 from algp_tpu_torch import planning
 from algp_tpu_torch.config import (
     PATH_UTILITIES, ExperimentConfig, resolve_num_inducing, resolve_strategy,
 )
 from algp_tpu_torch.field import FieldEnv, Sample
 from algp_tpu_torch.models import gp as gp_mod
+from algp_tpu_torch.models import sparse_gp
 from algp_tpu_torch.utils.checkpoint import EpisodeState
 from algp_tpu_torch.utils.metrics import MetricsLogger
 
@@ -104,8 +117,14 @@ class Agent:
             raise _not_ported("the deep feature kernel")
         if env.num_traits > 1:
             raise _not_ported("a multi-trait field")
-        if cfg.fit.sparse_threshold:
-            raise _not_ported("episode-scale SGPR refits (sparse_threshold)")
+        if cfg.fit.sparse_threshold and (
+                cfg.fit.sparse_threshold < cfg.fit.sparse_inducing):
+            raise ValueError(
+                f"sparse_threshold ({cfg.fit.sparse_threshold}) must be "
+                f"≥ sparse_inducing ({cfg.fit.sparse_inducing}) — the "
+                f"k-center design needs that many distinct sampled "
+                f"points when the sparse refit kicks in"
+            )
         self.env = env
         self.cfg = cfg
         self.spec = cfg.kernel
@@ -139,9 +158,6 @@ class Agent:
                     "the exact W seed has no design to vary"
                 )
             raise _not_ported("z-ensemble MI (mi_ensemble > 1)")
-        if self._strategy == "mi" and self._num_inducing:
-            raise _not_ported(
-                f"the low-rank MI planner (num_inducing={self._num_inducing})")
         if cfg.episode.waypoint_goals is not None:
             bad = [g for g in cfg.episode.waypoint_goals
                    if not 0 <= int(g) < env.n]
@@ -162,6 +178,8 @@ class Agent:
             ) * self._k_max
         self._max_samples = (cap + 7) // 8 * 8
         self._P_cache = None  # (params, W, WT) — exact implicit-precision seed
+        self._lr_cache = None  # (params, LowRankFactors) — low-rank seed
+        self._z_cache = None  # the low-rank planner's inducing design
         self._post_cache = None  # (params, n_samples, Posterior)
         self._base_noise_cache = None
         self._noise_vec_cache = None
@@ -237,7 +255,20 @@ class Agent:
         x, y, ns, m = self._padded_train(st)
         fit = self.cfg.fit
         seed = self.cfg.episode.seed
-        if st.params is not None and (fit.refit_iters or fit.refit_restarts):
+        warm = st.params is not None and (fit.refit_iters or fit.refit_restarts)
+        if fit.sparse_threshold and len(st.sampled_idx) > fit.sparse_threshold:
+            # long campaign: the collapsed SGPR bound, O(n·M²) per step
+            if warm:
+                res = sparse_gp.fit_step_sparse_warm(
+                    self.spec, fit, x, y, ns, seed, st.step, m, st.params,
+                    num_inducing=fit.sparse_inducing,
+                )
+            else:
+                res = sparse_gp.fit_step_sparse(
+                    self.spec, fit, x, y, ns, seed, st.step, m,
+                    num_inducing=fit.sparse_inducing,
+                )
+        elif warm:
             res = gp_mod.fit_step_warm(
                 self.spec, fit, x, y, ns, seed, st.step,
                 incumbent=st.params, num_valid=m,
@@ -428,8 +459,11 @@ class Agent:
 
         t0 = time.perf_counter()
         idx_pad, m, ns_pad, y_pad = self._padded_obs(st)
-        W = WT = None
-        if strat == "mi":
+        lowrank = strat == "mi" and bool(self._num_inducing)
+        W = WT = fac = None
+        if lowrank:
+            fac = self._lowrank_seed(st)
+        elif strat == "mi":
             W, WT = self._precision_seed(st)
         prof["seed_s"] = time.perf_counter() - t0  # queued, not waited for
 
@@ -440,14 +474,18 @@ class Agent:
         costs_d = _upload(costs, torch.float32, dev)
         common = dict(min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
                       path_utility=self._path_utility)
+        step_args = (self.spec, st.params, self._Xdev, idx_pad, m, ns_pad,
+                     y_pad, sets_d, sizes_d, costs_d)
         if self._use_device_metrics:
             f_true, obs_m, test_m = self._truth()
-            best, rmse, rmse_test, mean_var, var_sites = (
-                acq.plan_episode_step_metrics(
-                    self.spec, st.params, self._Xdev, idx_pad, m, ns_pad, y_pad,
-                    sets_d, sizes_d, costs_d, f_true, obs_m, test_m, W, WT,
-                    strategy=strat, **common,
-                ))
+            if lowrank:
+                out = acq_lr.plan_episode_step_lowrank_factors_metrics(
+                    *step_args, fac, f_true, obs_m, test_m, **common)
+            else:
+                out = acq.plan_episode_step_metrics(
+                    *step_args, f_true, obs_m, test_m, W, WT, strategy=strat,
+                    **common)
+            best, rmse, rmse_test, mean_var, var_sites = out
             # the step's one device→host copy, a few dozen bytes
             h = torch.cat([best.to(torch.float32).reshape(1), rmse.reshape(1),
                            rmse_test.reshape(1), mean_var.reshape(1),
@@ -462,10 +500,12 @@ class Agent:
                 mean_var=float(h[3]), var_sites=h[4:],
             )
 
-        best, mean, var, _ = acq.plan_episode_step(
-            self.spec, st.params, self._Xdev, idx_pad, m, ns_pad, y_pad,
-            sets_d, sizes_d, costs_d, W, WT, strategy=strat, **common,
-        )
+        if lowrank:
+            best, mean, var, _ = acq_lr.plan_episode_step_lowrank_factors(
+                *step_args, fac, **common)
+        else:
+            best, mean, var, _ = acq.plan_episode_step(
+                *step_args, W, WT, strategy=strat, **common)
         # the step's one device→host copy
         h = torch.cat([best.to(torch.float32).reshape(1), mean, var]).cpu().numpy()
         prof["step_s"] = time.perf_counter() - t0
@@ -529,10 +569,42 @@ class Agent:
             self._P_cache = (params, W, WT)
         return self._P_cache[1], self._P_cache[2]
 
+    def _lowrank_z(self) -> torch.Tensor:
+        """The low-rank planner's inducing design: a k-center chain of
+        min(M, n) points over the candidates, which depends only on the
+        candidate matrix, so it is computed once per episode (queued, no
+        host read).  The reference's sub-grid for chains past 2²¹
+        candidates is not ported: no ported path reaches that size."""
+        if self._z_cache is None:
+            xs = self._Xdev
+            m = min(self._num_inducing, xs.shape[0])
+            self._z_cache = xs.index_select(0, acq_lr.kcenter_indices(xs, m))
+        return self._z_cache
+
+    def _lowrank_seed(self, st: EpisodeState, params=None):
+        """The small-factor low-rank seed (`acquisition_lowrank.
+        lowrank_factors_seed`: the Gram kernel for K_zx, an O(N·M²) pass,
+        M × M factors kept), cached per fitted params and queued without
+        waiting; the noise model is derived on the device.  `params`
+        overrides st.params (the lagged refit seeds its pending params)."""
+        params = st.params if params is None else params
+        cached = self._lr_cache
+        if cached is None or cached[0] is not params:
+            fac = acq_lr.lowrank_factors_seed(
+                self.spec, params, self._Xdev, self._lowrank_z(),
+                min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
+            )
+            self._lr_cache = (params, fac)
+        return self._lr_cache[1]
+
     def _dispatch_refit_seed(self, st: EpisodeState, params=None):
-        """Queue the per-refit MI seed for the given params (no-op unless
-        the strategy is mi)."""
-        if self._strategy == "mi":
+        """Queue the per-refit MI seed for the given params, exact or low
+        rank as the planner is (no-op unless the strategy is mi)."""
+        if self._strategy != "mi":
+            return
+        if self._num_inducing:
+            self._lowrank_seed(st, params)
+        else:
             self._precision_seed(st, params)
 
     # ------------------------------------------------------------ episode
@@ -605,7 +677,7 @@ class Agent:
                     st.pending_params = None
             elif refit_due:
                 self.fit_model(st)
-                self._P_cache = None  # params changed → re-seed
+                self._P_cache = self._lr_cache = None  # params changed → re-seed
                 # queue the seed now: the host's path enumeration below
                 # overlaps the fit and seed device time
                 self._dispatch_refit_seed(st)

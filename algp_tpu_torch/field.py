@@ -3,18 +3,25 @@ counterpart of the synthetic, single-trait part of algp_tpu.field).
 
 The latent truth is a GP draw made on the device: the Gram of the whole
 grid from the CUDA kernel of `ops.gram`, an adaptive-jitter Cholesky, and
-standard-normal draws from a `torch.Generator` seeded with `cfg.seed`
-(those draws cannot equal the reference's `jax.random` ones, so the two
-packages' truths differ).  Everything else is host code, and the numpy
-generator `default_rng(cfg.seed)` is called in the reference's order, so
-the held-out split and the `collect` noise equal the reference's.
+standard-normal draws.  With `synth_inducing` = M < n the draw is the
+FITC one instead (`_synthesize_lowrank`): an exact sample of
+N(0, Q + diag(k − q)) over M k-center inducing points, O(n·M²), which
+makes the 100k-point grids possible.  The draws come from one
+`torch.Generator` seeded with `cfg.seed`: the dense truth takes (n,) from
+it; the FITC truth takes (M,) then (n,), in that order.  They cannot
+equal the reference's `jax.random` draws, so the two packages' truths
+differ; `draws` passes given draws instead (a test feeds the reference's).
+Everything else is host code, and the numpy generator
+`default_rng(cfg.seed)` is called in the reference's order, so the
+held-out split and the `collect` noise equal the reference's.
 
 The env runs on the card unless the caller passes `device="cpu"`.  A
 given `truth` (n,) replaces the draw, so a test can run both packages on
 the reference's field (`convert.field_env_like`).
 
 Not ported yet: phenotype tables, per-point features and feature warps,
-multiple traits and the FITC (`synth_inducing`) truth; see ROADMAP.md.
+multiple traits, and the FITC truth's streamed pass for (M, n) buffers
+past 5 GB; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from algp_tpu_torch.config import FieldConfig
 from algp_tpu_torch.device import resolve_device
 from algp_tpu_torch.ops import linalg as la
 from algp_tpu_torch.ops.gram import gram_kernel
-from algp_tpu_torch.ops.kernels import KernelSpec
+from algp_tpu_torch.ops.kernels import KernelSpec, gram, gram_diag
 
 MODALITIES = ("precise", "cheap")
 
@@ -60,7 +67,8 @@ class FieldEnv:
     """
 
     def __init__(self, cfg: FieldConfig, spec: Optional[KernelSpec] = None,
-                 device=None, truth: Optional[np.ndarray] = None):
+                 device=None, truth: Optional[np.ndarray] = None,
+                 draws: Optional[tuple] = None):
         if not 0.0 <= cfg.trait_corr < 1.0:
             raise ValueError(
                 f"trait_corr must be in [0, 1) (got {cfg.trait_corr})"
@@ -77,8 +85,6 @@ class FieldEnv:
             raise _not_ported("a feature warp")
         if cfg.num_traits > 1:
             raise _not_ported("a multi-trait field (num_traits)")
-        if cfg.synth_inducing:
-            raise _not_ported("the FITC truth (synth_inducing)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_rows = cfg.num_rows
@@ -92,7 +98,7 @@ class FieldEnv:
         ).astype(np.float32)
         self.X = torch.as_tensor(xy, device=self.device)
         if truth is None:
-            self.f_dev = self._synthesize(spec)
+            self.f_dev = self._synthesize(spec, draws)
         else:
             truth = np.asarray(truth, np.float32)
             if truth.shape != (self.n,):
@@ -114,9 +120,11 @@ class FieldEnv:
         self.test_mask = np.zeros(self.n, bool)
         self.test_mask[test] = True
 
-    def _synthesize(self, spec: Optional[KernelSpec]) -> torch.Tensor:
+    def _synthesize(self, spec: Optional[KernelSpec], draws=None) -> torch.Tensor:
         """Draw the latent field (n,) f32 on the device from a GP with the
-        config's true kernel."""
+        config's true kernel (FITC with `synth_inducing` < n).  `draws`:
+        the standard-normal draws to use, (z,) for the dense truth and
+        (zm, zn) for the FITC one."""
         cfg = self.cfg
         if spec is None:
             spec = KernelSpec("rbf", "rbf", ds=2, df=0)
@@ -129,12 +137,39 @@ class FieldEnv:
             noise=1.0,  # unused for sampling
             device=self.device,
         )
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+
+        def normal(i, n):
+            if draws is not None:
+                return torch.tensor(np.asarray(draws[i], np.float32),
+                                    device=self.device).reshape(n, 1)
+            return torch.randn((n, 1), generator=gen, device=self.device)
+
+        if cfg.synth_inducing and cfg.synth_inducing < self.n:
+            return self._synthesize_lowrank(spec, params, normal)
         K = gram_kernel(spec, params, self.X, self.X)
         L, _ = la.safe_cholesky(K, initial_jitter=1e-5)
         del K
-        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        z = torch.randn((self.n, 1), generator=gen, device=self.device)
-        return (L @ z)[:, 0]
+        return (L @ normal(0, self.n))[:, 0]
+
+    def _synthesize_lowrank(self, spec, params, normal) -> torch.Tensor:
+        """The FITC draw f = U·ε_M + √(k_diag − rowsum U²)·ε_n, U = K_xz L_zz⁻ᵀ
+        over M k-center inducing points: an exact sample of
+        N(0, Q + diag(k − q)), the family the low-rank planner conditions
+        on.  K_zx (M, n) from the Gram kernel; L_zz by the host-reading
+        adaptive-jitter factor (once per field)."""
+        from algp_tpu_torch.acquisition_lowrank import kcenter_indices
+
+        m = min(self.cfg.synth_inducing, self.n)
+        z = self.X.index_select(0, kcenter_indices(self.X, m))
+        eye = torch.eye(m, dtype=torch.float32, device=self.device)
+        Kzz = gram(spec, params, z, z) + 1e-6 * float(self.cfg.true_outputscale) * eye
+        Lzz, _ = la.safe_cholesky(Kzz, initial_jitter=1e-5)
+        zm, zn = normal(0, m), normal(1, self.n)
+        Ut = la.solve_triangular(Lzz, gram_kernel(spec, params, z, self.X))  # (m, n)
+        resid = torch.clamp_min(
+            gram_diag(spec, params, self.X) - torch.sum(Ut * Ut, dim=0), 0.0)
+        return (Ut.T @ zm + torch.sqrt(resid)[:, None] * zn)[:, 0]
 
     # ------------------------------------------------------- index geometry
 

@@ -336,13 +336,22 @@ def fit_step_warm(
     tracking evaluates the incumbent before its first update, so a warm
     refit never ends worse than where it started."""
     rcfg = refit_cfg(cfg)
-    inits = step_inits(spec, rcfg, seed, step, x.device)
-    inits = KernelParams(**{
-        f.name: torch.cat([getattr(incumbent, f.name)[None].to(x.device),
+    inits = warm_inits(spec, rcfg, seed, step, incumbent, x.device)
+    return _fit_batched(spec, rcfg, x, y, noise_scale, inits, num_valid)
+
+
+def warm_inits(
+    spec: KernelSpec, rcfg: FitConfig, seed: int, step: int,
+    incumbent: KernelParams, device,
+) -> KernelParams:
+    """`step_inits` under `rcfg` with restart 0 replaced by the incumbent
+    params (the warm refits, exact and sparse)."""
+    inits = step_inits(spec, rcfg, seed, step, device)
+    return KernelParams(**{
+        f.name: torch.cat([getattr(incumbent, f.name)[None].to(device),
                            getattr(inits, f.name)[1:]])
         for f in dataclasses.fields(KernelParams)
     })
-    return _fit_batched(spec, rcfg, x, y, noise_scale, inits, num_valid)
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,7 @@ def safe_cholesky(
     `initial_jitter`·mean(diag K), then ×`growth` each further try, up to
     `max_tries` times.  Returns (L, jitter_used).  Each try reads one
     boolean on the host: this is for one-off factors (the field's truth),
-    not for loops.
+    not for loops; `jitter_ladder_cholesky` is the sync-free variant.
     """
     scale = torch.mean(torch.diagonal(K, dim1=-2, dim2=-1))
     eye = _eye_like(K)
@@ -54,6 +54,34 @@ def safe_cholesky(
         jit = scale * initial_jitter if i == 0 else jit * growth
         L = cholesky(K + jit * eye)
     return L, jit
+
+
+def jitter_ladder_cholesky(
+    K: torch.Tensor,
+    initial_jitter: float = 1e-6,
+    max_tries: int = 5,
+    growth: float = 10.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`safe_cholesky` without a host read, for one (n, n) matrix: the
+    plain factor, and the whole jitter ladder K + jitterᵢ·I in one batched
+    factorization; the first finite try is picked on the device.  Try 0
+    is the plain factor bitwise; when every try fails, the last one (NaN)
+    is returned, as `safe_cholesky` does.  Returns (L, jitter_used).  It
+    costs max_tries extra factorizations on every call, so it is for the
+    small per-refit factors (K_zz of the low-rank seeds), not the large
+    ones."""
+    scale = torch.mean(torch.diagonal(K))
+    jits = [scale * initial_jitter]  # f32, grown as safe_cholesky grows it
+    for _ in range(max_tries - 1):
+        jits.append(jits[-1] * growth)
+    jits = torch.stack(jits)
+    ladder = cholesky(K + jits[:, None, None] * _eye_like(K))
+    tries = torch.cat([cholesky(K)[None], ladder])
+    ok = torch.isfinite(tries).flatten(1).all(dim=1)
+    pick = torch.where(ok.any(), torch.argmax(ok.to(torch.int32)), max_tries)
+    jit = torch.cat([torch.zeros_like(jits[:1]), jits]).index_select(
+        0, pick.reshape(1))[0]
+    return tries.index_select(0, pick.reshape(1))[0], jit
 
 
 def solve_triangular(

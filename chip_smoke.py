@@ -10,8 +10,9 @@ script exits non-zero and never prints the final line:
                 power limit (nvidia-smi)
   2. build    — nvcc builds csrc/*.cu from the checkout (seconds, ptxas)
   3. gram     — the Gram kernel vs its plain PyTorch version on the card,
-                every kind + a composite at a ragged shape and RBF at the
-                main path's 10 240²; times at 10 240²
+                every kind + a composite at a ragged shape, RBF at the
+                main path's 10 240² and Matérn 3/2 at the low-rank seed's
+                1 024 × 102 400; times and bounds at both
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
                 and a ragged N; bitwise repeatability; times per call
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
@@ -28,6 +29,19 @@ script exits non-zero and never prints the final line:
                 RMSE and held-out RMSE at the pilot and at the end,
                 calibration, plan / refit-step ms, launches, peak memory,
                 device→host syncs per planning step
+  9b. lowrank_main — greedy low-rank MI at N = 102 400
+                (`fit_and_select_lowrank`, benchmarks/lowrank_bench.py's
+                workload, M = 1 024): unique selections, no pilot picked
+                again, median / min of 5 runs, layer times (fit, k-center,
+                seed, 50 rounds), peak memory, launches, and 30 selections
+                equal to the f64 low-rank oracle on a 30 × 30 grid
+  9c. episode_100k — `c5_100k` (320×320 FITC field, low-rank planner,
+                device metrics) through the CLI, warm-up + timed, the
+                checks of phase 9; plan, seed and refit-step ms; at step 2
+                the small-factor step picks the full-seed step's path
+  9d. episode_long — `c5_long` (~160 steps on the 10k grid) through the
+                CLI once: the checks of phase 9, and at least one refit by
+                the SGPR bound
  10. chol     — the Cholesky kernel vs its plain version (cuSOLVER) and an
                 f64 factor at n = 997 (ragged), the episode's 10 000 seed
                 and the main path's 10 240 seed: residuals, errors, NaN on
@@ -40,14 +54,16 @@ script exits non-zero and never prints the final line:
  11. kernels  — one JSON line for all kernels: launches on the paths, error
                 against the plain version, kernel / plain / library ms and
                 the card's bound
-Each path (main, episode, the Cholesky seed path) runs with the kernel
-counts set to 0 just before it and read just after.
+Each path (main, episode, lowrank_main, episode_100k, episode_long, the
+Cholesky seed path) runs with the kernel counts set to 0 just before it
+and read just after.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import json
@@ -65,6 +81,11 @@ OUT = ROOT / "build" / "chip_smoke"  # the episode runs' metrics and states
 REPS = 5
 GRID = 100  # the main path's field is GRID × GRID (bench.py: 100 × 100)
 EPISODE_ARGS = ["--preset", "c5_10k"]  # the episode phase's command line
+# greedy low-rank MI (benchmarks/lowrank_bench.py): a jittered
+# LOWRANK_GRID² grid, LOWRANK_M inducing points, 64 pilots, 50 rounds
+LOWRANK_GRID, LOWRANK_M = 320, 1024
+EPISODE_100K_ARGS = ["--preset", "c5_100k"]
+EPISODE_LONG_ARGS = ["--preset", "c5_long"]
 # the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and FP32 flop/s outside the tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -194,10 +215,31 @@ def phase_gram(dev) -> dict:
     # each output written once, inputs read once; per entry ds subtracts,
     # multiplies and adds, the exp and the scale
     bound_ms, bound_by = bound(4 * (n * n + 2 * n * spec.dim), n * n * (3 * spec.ds + 3))
+    # the low-rank seed's K_zx: 1 024 inducing points against the 320 × 320
+    # grid, Matérn 3/2 (the c5_100k truth's is 2 048 × 102 400)
+    spec = KernelSpec("matern32", ds=2)
+    p = spec.init_params(ls_spatial=25.0, outputscale=1.0, device=dev)
+    xg = torch.tensor(lowrank_workload(LOWRANK_GRID)[0], device=dev)
+    z = xg[:: xg.shape[0] // LOWRANK_M][:LOWRANK_M].contiguous()
+    err_r = float((G.gram_kernel(spec, p, z, xg)
+                   - G.gram_reference(spec, p, z, xg)).abs().max())
+    if not err_r <= 2e-6:
+        raise AssertionError(f"gram kernel vs plain at {LOWRANK_M}x{xg.shape[0]}: {err_r}")
+    worst = max(worst, err_r)
+    n1, n2 = z.shape[0], xg.shape[0]
+    rect = {"spec": "matern32", "shape": [n1, n2], "max_abs_err": err_r,
+            "ms": cuda_ms(lambda: G.gram_kernel(spec, p, z, xg)),
+            "plain_ms": cuda_ms(lambda: G.gram_reference(spec, p, z, xg), reps=5)}
+    # Matérn 3/2: a square root, two multiplies, an add and the exp more
+    rect["bound_ms"], rect["bound_by"] = bound(4 * (n1 * n2 + 2 * (n1 + n2)),
+                                               n1 * n2 * (3 * spec.ds + 7))
+    results.append(rect)
     emit("gram", cases=results, tol="2e-6*s2", ms=ms, plain_ms=plain_ms,
          write_GBps=round(gbps, 1), bound_ms=bound_ms)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            f"at_{n1}x{n2}": {k: rect[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "max_abs_err")}}
 
 
 def phase_wtw(dev) -> dict:
@@ -244,6 +286,21 @@ def load_module(name: str, path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def lowrank_workload(n, num_pilot=64):
+    """benchmarks/lowrank_bench.py's inputs, from numpy seed 0 in its order:
+    an n × n grid (ij order) jittered by U(-0.05, 0.05), the pilots, and
+    smooth observations at them.  Returns (x, pilot, y)."""
+    rng = np.random.default_rng(0)
+    xs, ys = np.meshgrid(np.arange(n, dtype=np.float32),
+                         np.arange(n, dtype=np.float32), indexing="ij")
+    x = np.stack([xs.ravel(), ys.ravel()], axis=1)
+    x += rng.uniform(-0.05, 0.05, x.shape).astype(np.float32)
+    pilot = rng.choice(n * n, size=num_pilot, replace=False)
+    y = np.sin(0.05 * x[pilot, 0]) * np.cos(0.07 * x[pilot, 1])
+    y = (y + 0.1 * rng.standard_normal(num_pilot)).astype(np.float32)
+    return x, pilot, y
 
 
 def jittered_grid(rows, cols, seed):
@@ -437,20 +494,28 @@ def _zero_counts() -> None:
     G.LAUNCHES = U.LAUNCHES = C.LAUNCHES = 0
 
 
-def phase_episode(dev, card: str) -> dict:
-    """c5_10k through the CLI, in this process: a warm-up run, then the
-    timed run with the kernel counts zeroed just before it.  Every plan
-    call runs under torch's sync debug mode, which warns at each
-    synchronizing operation: a step may make one (its read of the
-    outputs)."""
+def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> dict:
+    """An episode through the CLI, in this process: a warm-up run when
+    `warm`, then the timed run with the kernel counts zeroed just before
+    it.  Every plan call runs under torch's sync debug mode, which warns at
+    each synchronizing operation: a step may make one (its read of the
+    outputs).  `capture_step`: keep the agent and the state its timed run's
+    plan saw at that step (`agent`, `plan_state`)."""
     from algp_tpu_torch import cli, episode
+    from algp_tpu_torch.models import sparse_gp
     from algp_tpu_torch.utils import checkpoint as ckpt
 
     OUT.mkdir(parents=True, exist_ok=True)
     syncs: list[int] = []
+    sparse_refits: list[int] = []
+    captured: dict = {}
     orig = episode.Agent._plan_and_metrics
+    orig_sparse = {k: getattr(sparse_gp, k)
+                   for k in ("fit_step_sparse", "fit_step_sparse_warm")}
 
     def counted(self, st):
+        if capture_step is not None and st.step == capture_step and not captured:
+            captured.update(agent=self, plan_state=dataclasses.replace(st))
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -460,11 +525,18 @@ def phase_episode(dev, card: str) -> dict:
                 torch.cuda.set_sync_debug_mode("default")
                 syncs.append(sum("synchroniz" in str(w.message) for w in caught))
 
-    def run(tag):
-        metrics, state = OUT / f"episode_{tag}.jsonl", OUT / f"episode_{tag}.npz"
+    def sparse_counted(name):
+        def fit(*a, **k):
+            sparse_refits.append(1)
+            return orig_sparse[name](*a, **k)
+        return fit
+
+    def run(run_tag):
+        metrics = OUT / f"{tag}_{run_tag}.jsonl"
+        state = OUT / f"{tag}_{run_tag}.npz"
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = cli.main([*EPISODE_ARGS, "--metrics-jsonl", str(metrics),
+            rc = cli.main([*args, "--metrics-jsonl", str(metrics),
                            "--checkpoint", str(state)])
         if rc != 0:
             raise AssertionError(f"cli.main returned {rc}")
@@ -473,11 +545,16 @@ def phase_episode(dev, card: str) -> dict:
         return summary, history, ckpt.load(str(state), dev)
 
     episode.Agent._plan_and_metrics = counted
+    for k in orig_sparse:
+        setattr(sparse_gp, k, sparse_counted(k))
     try:
-        t0 = time.perf_counter()
-        run("warm")
-        warm_s = time.perf_counter() - t0
+        warm_s = None
+        if warm:
+            t0 = time.perf_counter()
+            run("warm")
+            warm_s = time.perf_counter() - t0
         syncs.clear()
+        sparse_refits.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -486,13 +563,28 @@ def phase_episode(dev, card: str) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
     finally:
         episode.Agent._plan_and_metrics = orig
+        for k, fn in orig_sparse.items():
+            setattr(sparse_gp, k, fn)
+    return dict(summary=summary, history=history, state=st, syncs=list(syncs),
+                launches=launches, wall_s=wall_s, warm_s=warm_s, peak=peak,
+                sparse_refits=len(sparse_refits), **captured)
 
+
+def check_episode(run: dict, args: list, workload: str, card: str) -> dict:
+    """The episode's checks (finite metrics, held-out RMSE falls, budget
+    not overdrawn, indices on the grid, one sync per plan, the Gram kernel
+    launched and the Cholesky kernel not) and its summary fields."""
+    from algp_tpu_torch import cli
+
+    summary, history, st = run["summary"], run["history"], run["state"]
+    syncs, launches = run["syncs"], run["launches"]
     pilot = next(h for h in history if h["phase"] == "pilot")
     plans = [h for h in history if h["phase"] == "plan"]
     calib = next(h for h in history if h["phase"] == "calibration")
-    cfg = cli.config_from_args(cli.build_parser().parse_args(EPISODE_ARGS))
+    cfg = cli.config_from_args(cli.build_parser().parse_args(args))
     n = cfg.field.num_rows * cfg.field.num_cols
     budget, refit_every = cfg.episode.budget, cfg.episode.refit_every
     metrics = [pilot["rmse"], pilot["rmse_test"], pilot["mean_var"],
@@ -511,34 +603,228 @@ def phase_episode(dev, card: str) -> dict:
         raise AssertionError("a sampled index lies outside the grid")
     if len(syncs) != len(plans) + 1 or max(syncs) > 1:
         raise AssertionError(f"device→host syncs per planning step: {syncs}")
-    # the seeds' factor is the library's: no Cholesky kernel launch
+    # the seeds' factors are the library's: no Cholesky kernel launch
     if launches["gram"] < 1 or launches["cholesky"] != 0:
         raise AssertionError(f"episode launches: {launches}")
     # step wall time from the logger's clock: a step's record follows its
-    # plan; refit steps (step % 4 == 0) also queue the fit and the seed
+    # plan; refit steps (step % refit_every == 0) also queue the fit and seed
     t_prev = [pilot["t_wall"]] + [h["t_wall"] for h in plans[:-1]]
     step_ms = {h["step"]: (h["t_wall"] - t) * 1e3 for h, t in zip(plans, t_prev)}
     refit = [v for k, v in step_ms.items() if k % refit_every == 0]
     other = [v for k, v in step_ms.items() if k % refit_every]
-    out = dict(
-        workload="c5_10k via algp_tpu_torch.cli.main: 100x100 Matern-3/2 field "
-                 "(ls 8), 64 pilots, budget 400, 8 waypoints, 10 samples/step, "
-                 "exact MI planner, warm refits 60x2 every 4 steps",
-        steps=summary["steps"], samples=summary["n_sampled"],
+    return dict(
+        workload=workload, steps=summary["steps"], samples=summary["n_sampled"],
         budget_used=budget - st.budget_left, budget=budget,
         rmse_pilot=pilot["rmse"], rmse_test_pilot=pilot["rmse_test"],
         rmse_final=summary["final_rmse"], rmse_test_final=summary["final_rmse_test"],
         calibration={k: v for k, v in calib.items()
                      if k not in ("t_wall", "step", "phase")},
         plan_ms_median=float(np.median([h["plan_s"] for h in plans])) * 1e3,
+        # the plan's parts: host path enumeration, queueing the seed, the
+        # fused step and its one read
+        plan_parts_ms_median={k: float(np.median([h[k] for h in plans if k in h])) * 1e3
+                              for k in ("enum_s", "seed_s", "step_s")},
         step_ms_median=float(np.median(other)) if other else None,
         refit_step_ms_median=float(np.median(refit)) if refit else None,
-        episode_wall_s=wall_s, warmup_wall_s=warm_s,
+        pilot_fit_s=pilot.get("fit_s"),
+        episode_wall_s=run["wall_s"], warmup_wall_s=run["warm_s"],
         syncs_per_plan=syncs, launches=launches,
-        peak_mem_GB=round(torch.cuda.max_memory_allocated() / 1e9, 3), card=card,
+        peak_mem_GB=round(run["peak"] / 1e9, 3), card=card,
     )
+
+
+def phase_episode(dev, card: str) -> dict:
+    """c5_10k through the CLI: a warm-up run, then the timed run."""
+    run = run_episodes(dev, EPISODE_ARGS, "episode", warm=True)
+    out = check_episode(
+        run, EPISODE_ARGS,
+        "c5_10k via algp_tpu_torch.cli.main: 100x100 Matern-3/2 field (ls 8), "
+        "64 pilots, budget 400, 8 waypoints, 10 samples/step, exact MI planner, "
+        "warm refits 60x2 every 4 steps", card)
     emit("episode", **out)
-    return {"launches": launches, "params": st.params}
+    return {"launches": run["launches"], "params": run["state"].params}
+
+
+def phase_lowrank_main(dev, oracle, card: str) -> dict:
+    """Greedy low-rank MI at N = 102 400 (benchmarks/lowrank_bench.py's
+    workload) through `acquisition_lowrank.fit_and_select_lowrank`: one
+    warm-up and REPS timed runs with the counts zeroed before them, then
+    the layers one by one, then the small-size fidelity check."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+    from algp_tpu_torch.config import FitConfig
+    from algp_tpu_torch.models import gp
+    from algp_tpu_torch.ops.kernels import KernelSpec
+
+    spec = KernelSpec("matern32", ds=2)
+    fitcfg = FitConfig(iters=60, restarts=4)
+    rounds, num_pilot = 50, 64
+    x_np, pilot_np, y_np = lowrank_workload(LOWRANK_GRID, num_pilot)
+    x = torch.tensor(x_np, device=dev)
+    pilot = torch.tensor(pilot_np, device=dev)
+    x_train, y = x.index_select(0, pilot), torch.tensor(y_np, device=dev)
+
+    def run(seed):
+        fit, sel = lr.fit_and_select_lowrank(
+            spec, fitcfg, x_train, y, x, pilot, rounds=rounds, num_pilot=num_pilot,
+            num_inducing=LOWRANK_M, generator=torch.Generator(device=dev).manual_seed(seed))
+        return fit, float(fit.nll.cpu()), sel.selected.cpu().numpy()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    times, per_run = [], []
+    for rep in range(REPS + 1):
+        c0 = _counts()
+        t0 = time.perf_counter()
+        fit, nll, sel = run(rep)
+        dt = (time.perf_counter() - t0) * 1e3
+        per_run.append({k: v - c0[k] for k, v in _counts().items()})
+        if rep:  # rep 0 is the warm-up
+            times.append(dt)
+        if not np.isfinite(nll):
+            raise AssertionError(f"non-finite NLL {nll}")
+        if len(np.unique(sel)) != rounds or np.isin(sel, pilot_np).any():
+            raise AssertionError(f"duplicate or pilot selections: {sel}")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    for c in per_run:  # one Gram kernel launch per run: the seed's K_zx
+        if c["gram"] != 1 or c["wtw_column"] != 0 or c["cholesky"] != 0:
+            raise AssertionError(f"low-rank run launches: {c}")
+
+    # the layers, at the last run's fitted params
+    p = fit.params
+    nv_base = torch.clamp_min(p.noise_var, fitcfg.min_noise ** 2)
+    nv = nv_base * torch.ones(x.shape[0], device=dev)
+    layers = {"fit_ms": wall_ms(lambda: gp.fit(
+        spec, fitcfg, x_train, y, generator=torch.Generator(device=dev).manual_seed(0)))}
+    layers["kcenter_ms"] = wall_ms(lambda: lr.kcenter_indices(x, LOWRANK_M))
+    z = x.index_select(0, lr.kcenter_indices(x, LOWRANK_M))
+    layers["seed_ms"] = wall_ms(lambda: lr.lowrank_precision_seed(spec, p, x, nv, z))
+    greedy_ms = wall_ms(lambda: lr.greedy_select_lowrank(
+        spec, p, x, nv, pilot, z, rounds=rounds, num_pilot=num_pilot))
+    layers["rounds_ms"] = greedy_ms - layers["seed_ms"]
+    layers["greedy_select_lowrank_ms"] = greedy_ms
+
+    # fidelity: on a 30 × 30 jittered grid, 150 k-center points, 6 pilots,
+    # the card's 30 selections (kernel-built seed) equal the f64 oracle's
+    xs = jittered_grid(30, 30, seed=11)
+    sp = KernelSpec("rbf", ds=2)
+    ps = sp.init_params(ls_spatial=3.0, outputscale=1.0, noise=0.15, device=dev)
+    xst = torch.tensor(xs, dtype=torch.float32, device=dev)
+    zidx = lr.kcenter_indices(xst, 150)
+    pil = np.linspace(0, len(xs) - 1, 6).round().astype(np.int64)
+    got = lr.greedy_select_lowrank(
+        sp, ps, xst, torch.full((len(xs),), 0.15 ** 2, device=dev),
+        torch.tensor(pil, device=dev), xst.index_select(0, zidx), rounds=30,
+        num_pilot=6).selected.cpu().numpy()
+    ref, _ = oracle.greedy_mi_selection_lowrank(
+        oracle.gram(xs, xs, ls_spatial=3.0, outputscale=1.0), zidx.cpu().numpy(),
+        0.15 ** 2, 30, pil)
+    if not np.array_equal(got, ref):
+        first = int(np.flatnonzero(got != ref)[0])
+        raise AssertionError(f"low-rank selections differ from the f64 oracle from "
+                             f"round {first}: {got[first:first + 5]} vs {ref[first:first + 5]}")
+    emit("lowrank_main",
+         workload=f"fit_and_select_lowrank N={x.shape[0]} (320x320 jittered grid, "
+                  f"matern32), M={LOWRANK_M} k-center, 64 pilots, adam 4x60, 50 MI rounds",
+         median_ms=float(np.median(times)), min_ms=float(min(times)), reps_ms=times,
+         nll=nll, launches=launches, per_run_launches=per_run[0], layers=layers,
+         peak_mem_GB=round(peak / 1e9, 3), first_selected=sel[:10].tolist(),
+         fidelity="30x30 jittered, rbf ls 3, M 150, 6 pilots: 30/30 equal to the "
+                  "f64 low-rank oracle", card=card)
+    return {"launches": launches}
+
+
+def phase_episode_100k(dev, card: str) -> dict:
+    """c5_100k through the CLI (FITC truth, low-rank planner, device
+    metrics): a warm-up run and the timed run.  Then, at the state the
+    timed run planned from at step 2, the small-factor step against the
+    full-seed step."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+    from algp_tpu_torch import planning
+
+    run = run_episodes(dev, EPISODE_100K_ARGS, "episode_100k", warm=True,
+                       capture_step=2)
+    out = check_episode(
+        run, EPISODE_100K_ARGS,
+        "c5_100k via algp_tpu_torch.cli.main: 320x320 Matern-3/2 field (ls 25, "
+        "FITC truth over 2048 k-center points), 128 pilots, budget 1280, 8 "
+        "waypoints, 10 samples/step, low-rank MI planner M=1024, warm refits "
+        "100x3 every 4 steps, device metrics", card)
+    if run["launches"]["wtw_column"] != 0:
+        raise AssertionError(f"episode_100k launches: {run['launches']}")
+
+    agent, st = run["agent"], run["plan_state"]
+    cfg, dev_x = agent.cfg, agent._Xdev
+    batch = planning.enumerate_batch(
+        agent.env, st.pose, min(st.budget_left, cfg.episode.budget / cfg.episode.num_waypoints),
+        max_paths=agent._pad_paths, k_max=agent._k_max,
+        min_cost_frac=cfg.episode.min_cost_frac)
+    P = agent._pad_paths
+    sets = np.zeros((P, agent._k_max), np.int64)
+    sizes, costs = np.zeros(P, np.int64), np.ones(P, np.float32)
+    sets[:len(batch)], sizes[:len(batch)], costs[:len(batch)] = (
+        batch.sets, batch.sizes, batch.costs)
+    idx_pad, m, ns_pad, y_pad = agent._padded_obs(st)
+    common = dict(min_noise=cfg.fit.min_noise, nv_mult=agent._nv_mult,
+                  path_utility=agent._path_utility)
+    args = (agent.spec, st.params, dev_x, idx_pad, m, ns_pad, y_pad,
+            torch.tensor(sets, device=dev), torch.tensor(sizes, device=dev),
+            torch.tensor(costs, device=dev))
+    z = agent._lowrank_z()
+    fac = lr.lowrank_factors_seed(agent.spec, st.params, dev_x, z,
+                                  min_noise=cfg.fit.min_noise, nv_mult=agent._nv_mult)
+    full = lr.lowrank_seed_with_z(agent.spec, st.params, dev_x, z,
+                                  min_noise=cfg.fit.min_noise, nv_mult=agent._nv_mult)
+    b_f, _, _, s_f = lr.plan_episode_step_lowrank_factors(*args, fac, **common)
+    b_s, _, _, s_s = lr.plan_episode_step_lowrank(*args, full, **common)
+    s_f, s_s = s_f.cpu().numpy(), s_s.cpu().numpy()
+    live = sizes > 0
+    step_check = {"step": st.step, "paths": int(live.sum()), "best_factors": int(b_f),
+                  "best_full_seed": int(b_s),
+                  "max_rel_score_diff": float(np.max(np.abs(s_f - s_s)[live]
+                                                     / np.abs(s_s[live]).clip(1e-6)))}
+    if int(b_f) != int(b_s):
+        raise AssertionError(f"the factors step and the full-seed step part: {step_check}")
+    out["factors_vs_full_seed"] = step_check
+    out["seed_ms"] = cuda_ms(lambda: lr.lowrank_factors_seed(
+        agent.spec, st.params, dev_x, z, min_noise=cfg.fit.min_noise,
+        nv_mult=agent._nv_mult), 5)
+    out["kcenter_ms"] = wall_ms(lambda: lr.kcenter_indices(dev_x, z.shape[0]))
+    emit("episode_100k", **out)
+    return {"launches": run["launches"]}
+
+
+def phase_episode_long(dev, card: str) -> dict:
+    """c5_long through the CLI: the exact planner over ~160 steps, refits
+    switching to SGPR past 512 samples; one timed run."""
+    run = run_episodes(dev, EPISODE_LONG_ARGS, "episode_long", warm=False)
+    out = check_episode(
+        run, EPISODE_LONG_ARGS,
+        "c5_long via algp_tpu_torch.cli.main: 100x100 Matern-3/2 field (ls 8), "
+        "64 pilots, budget 4800, 80 waypoints, 10 samples/step, exact MI planner, "
+        "warm refits 60x2 every 4 steps, SGPR over 256 k-center points past 512 "
+        "samples", card)
+    if run["sparse_refits"] < 1:
+        raise AssertionError("no SGPR refit ran in c5_long")
+    # refit records: the fit ran on the samples the record counts, by the
+    # SGPR bound past the threshold
+    from algp_tpu_torch import cli
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(EPISODE_LONG_ARGS))
+    thr = cfg.fit.sparse_threshold
+    refits = [h for h in run["history"] if h["phase"] == "plan"
+              and h["step"] % cfg.episode.refit_every == 0]
+    sgpr = [h["fit_s"] for h in refits if h["n_sampled"] > thr]
+    exact = [h["fit_s"] for h in refits if h["n_sampled"] <= thr]
+    if len(sgpr) != run["sparse_refits"]:
+        raise AssertionError(f"SGPR refits: {run['sparse_refits']} calls, "
+                             f"{len(sgpr)} refit steps past {thr} samples")
+    out.update(sgpr_refits=len(sgpr), exact_refits=len(exact),
+               sgpr_refit_s_median=float(np.median(sgpr)),
+               exact_refit_s_median=float(np.median(exact)) if exact else None)
+    emit("episode_long", **out)
+    return {"launches": run["launches"]}
 
 
 def phase_chol(dev, main_run, episode_run, card: str) -> dict:
@@ -727,8 +1013,14 @@ def main() -> None:
     phase_layers(dev, main_run)
     phase_profile(main_run)
     episode_run = phase_episode(dev, smi)
+    lowrank_run = phase_lowrank_main(dev, oracle, smi)
+    episode_100k = phase_episode_100k(dev, smi)
+    episode_long = phase_episode_long(dev, smi)
     chol = phase_chol(dev, main_run, episode_run, smi)
     paths = {"main": main_run["launches"], "episode": episode_run["launches"],
+             "lowrank_main": lowrank_run["launches"],
+             "episode_100k": episode_100k["launches"],
+             "episode_long": episode_long["launches"],
              "chol_seed": chol.pop("launches")}
 
     def entry(name, source, replaces, stats):

@@ -365,3 +365,117 @@ def test_episode_resume_on_card_continues_exactly(dev, tmp_path):
         max_steps=10, resume_from=ckpt.load(path, dev))
     np.testing.assert_array_equal(resumed.state.sampled_idx, full.state.sampled_idx)
     assert resumed.rmse == pytest.approx(full.rmse, abs=1e-5)
+
+
+# ------------------------------------------------ the low-rank scale paths
+
+
+@pytest.mark.parametrize("case", ["int_grid_ties", "jittered"])
+def test_kcenter_on_card_equals_cpu(dev, case):
+    from algp_tpu_torch.acquisition_lowrank import kcenter_indices
+
+    if case == "int_grid_ties":  # exact integer grid: distances tie massively
+        r, c = np.divmod(np.arange(60 * 60), 60)
+        x = np.stack([c, r], 1).astype(np.float32)
+    else:
+        x = _jittered_grid(60, 60, seed=4).astype(np.float32)
+    cpu = kcenter_indices(torch.tensor(x), 256).numpy()
+    card = kcenter_indices(torch.tensor(x, device=dev), 256).cpu().numpy()
+    np.testing.assert_array_equal(card, cpu)
+    assert len(np.unique(card)) == 256
+
+
+def test_v_rows_at_equal_the_kernel_built_seed_rows(dev):
+    """The step rebuilds precision rows with the plain Gram (`v_rows_at`);
+    the full seed's K_zx comes from the Gram kernel.  Same rows within the
+    CPU test's f32 tolerance (a solve's bits depend on its RHS width)."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+
+    spec = KernelSpec("matern32", ds=2)
+    p = spec.init_params(ls_spatial=6.0, outputscale=1.2, noise=0.1, device=dev)
+    x = torch.tensor(_jittered_grid(64, 64, seed=9), dtype=torch.float32, device=dev)
+    z = x.index_select(0, lr.kcenter_indices(x, 256))
+    before = G.LAUNCHES
+    full = lr.lowrank_seed_with_z(spec, p, x, z)
+    fac = lr.lowrank_factors_seed(spec, p, x, z)
+    assert G.LAUNCHES == before + 2  # K_zx of both seeds from the kernel
+    rows = torch.tensor(np.random.default_rng(0).choice(len(x), 300, replace=False),
+                        device=dev)
+    nv = torch.clamp_min(p.noise_var, 1e-6) * torch.ones(300, device=dev)
+    VT_r, dinv_r = lr.v_rows_at(spec, p, fac, x[rows], nv, len(x))
+    np.testing.assert_allclose(VT_r.cpu().numpy(), full.VT[rows].cpu().numpy(),
+                               rtol=5e-3, atol=2e-4)
+    np.testing.assert_allclose(dinv_r.cpu().numpy(), full.dinv[rows].cpu().numpy(),
+                               rtol=5e-3)
+
+
+@pytest.mark.parametrize("num_pilot", [0, 6])
+def test_greedy_lowrank_equals_f64_oracle(dev, num_pilot):
+    from algp_tpu_torch import acquisition_lowrank as lr
+
+    x = _jittered_grid(30, 30, seed=11)
+    spec = KernelSpec("rbf", ds=2)
+    params = spec.init_params(ls_spatial=3.0, outputscale=1.0, noise=0.15, device=dev)
+    xt = torch.tensor(x, dtype=torch.float32, device=dev)
+    zidx = lr.kcenter_indices(xt, 150)
+    pilot = np.linspace(0, len(x) - 1, num_pilot).round().astype(np.int64)
+    before = G.LAUNCHES
+    res = lr.greedy_select_lowrank(
+        spec, params, xt, torch.full((len(x),), 0.15**2, device=dev),
+        torch.tensor(pilot, device=dev), xt.index_select(0, zidx),
+        rounds=30, num_pilot=num_pilot)
+    assert G.LAUNCHES == before + 1  # the seed's K_zx
+    K = oracle.gram(x, x, ls_spatial=3.0, outputscale=1.0)
+    ref, _ = oracle.greedy_mi_selection_lowrank(K, zidx.cpu().numpy(), 0.15**2, 30,
+                                                pilot)
+    np.testing.assert_array_equal(res.selected.cpu().numpy(), ref)
+
+
+def test_jitter_ladder_on_card(dev):
+    """Healthy K_zz: the plain factor bitwise, no jitter.  A duplicated
+    dense design (not PD in f32): finite, with the jitter the host-reading
+    `safe_cholesky` picks and a residual within 4× of its factor's (the
+    batched factorization of the ladder rounds otherwise than the single
+    one on the card)."""
+    from algp_tpu_torch.ops import linalg as la
+
+    spec = KernelSpec("matern32", ds=2)
+    p = spec.init_params(ls_spatial=3.0, outputscale=1.0, device=dev)
+    x = torch.tensor(_jittered_grid(20, 20, seed=2), dtype=torch.float32, device=dev)
+    K = G.gram_reference(spec, p, x, x) + 1e-3 * torch.eye(400, device=dev)
+    L, jit = la.jitter_ladder_cholesky(K, initial_jitter=1e-5)
+    assert torch.equal(L, la.cholesky(K)) and float(jit) == 0.0
+    xd = torch.cat([x, x[:50]])
+    pd = spec.init_params(ls_spatial=12.0, outputscale=1.0, device=dev)
+    Kd = G.gram_reference(spec, pd, xd, xd)
+    assert not torch.isfinite(la.cholesky(Kd)).all()
+    L, jit = la.jitter_ladder_cholesky(Kd, initial_jitter=1e-5)
+    Lh, jit_h = la.safe_cholesky(Kd, initial_jitter=1e-5)
+    assert torch.isfinite(L).all() and float(jit) > 0
+    assert float(jit) == float(jit_h)
+    Kj = (Kd + jit * torch.eye(len(xd), device=dev)).double()
+    res = (L.double() @ L.double().T - Kj).abs().max().item()
+    res_h = (Lh.double() @ Lh.double().T - Kj).abs().max().item()
+    assert res <= 4 * res_h + 1e-7
+
+
+def test_sparse_fit_on_card_equals_cpu(dev):
+    """SGPR from the same inits on the card and the CPU: the same best
+    −ELBO within 1e-4, the same predictive mean within 2e-3."""
+    from algp_tpu_torch.config import FitConfig
+    from algp_tpu_torch.models import gp, sparse_gp
+
+    rng = np.random.default_rng(8)
+    spec = KernelSpec("matern32", ds=2)
+    cfg = FitConfig(iters=40, restarts=3)
+    x = rng.uniform(0, 20, (600, 2)).astype(np.float32)
+    y = (np.sin(x[:, 0] / 3) + 0.1 * rng.standard_normal(600)).astype(np.float32)
+    inits = gp.make_restart_inits(spec, cfg, torch.Generator().manual_seed(4))
+    out = {}
+    for d in ("cpu", dev):
+        model = sparse_gp.SparseGP(spec, num_inducing=64, fit_config=cfg, device=d)
+        res = model.fit(x, y, inits=inits.map(lambda a: a.to(d)))
+        mean, var = model.predict(x)
+        out[str(d)] = (float(res.nll), mean.cpu().numpy())
+    assert out[str(dev)][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    np.testing.assert_allclose(out[str(dev)][1], out["cpu"][1], atol=2e-3)

@@ -134,16 +134,35 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(acquisition=tc.AcquisitionConfig(strategy="mi", num_inducing=32)),
+    dict(acquisition=tc.AcquisitionConfig(strategy="entropy", mi_ensemble=2)),
     dict(acquisition=tc.AcquisitionConfig(strategy="mi", num_inducing=32,
                                           mi_ensemble=2)),
-    dict(fit=tc.FitConfig(sparse_threshold=50)),
+    dict(deep=object(), acquisition=tc.AcquisitionConfig(strategy="mi",
+                                                         num_inducing=32)),
     dict(deep=object()),
 ])
 def test_unported_branches_raise(change):
     _, cfg = _configs("mi")
     env = FieldEnv(cfg.field, cfg.kernel, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Agent(env, dataclasses.replace(cfg, **change))
+
+
+@pytest.mark.parametrize("change,error", [
+    (dict(acquisition=tc.AcquisitionConfig(strategy="mi", num_inducing=32)), None),
+    (dict(fit=tc.FitConfig(sparse_threshold=50)), ValueError),
+    (dict(fit=tc.FitConfig(sparse_threshold=50, sparse_inducing=50)), None),
+])
+def test_scale_branches_are_ported(change, error):
+    """The low-rank planner and SGPR refits construct; a sparse threshold
+    below the inducing count (the default 256) is refused, as the
+    reference refuses it."""
+    _, cfg = _configs("mi")
+    env = FieldEnv(cfg.field, cfg.kernel, device="cpu")
+    if error is not None:
+        with pytest.raises(error, match="sparse_threshold"):
+            Agent(env, dataclasses.replace(cfg, **change))
+    else:
         Agent(env, dataclasses.replace(cfg, **change))
 
 
@@ -155,4 +174,7 @@ def test_presets_equal_the_reference():
             theirs = dataclasses.asdict(getattr(ref, part))
             assert mine == {k: theirs[k] for k in mine}, (name, part)
     assert tc.resolve_num_inducing(None, 10_000) == 0
-    assert {"c5_10k", "c5_episode"} <= set(tc.PRESETS)
+    assert tc.resolve_num_inducing(None, 140 * 140) == 1024
+    assert {"c5_10k", "c5_episode", "c5_20k", "c5_100k", "c5_long"} <= set(tc.PRESETS)
+    # the million-point and table presets are not ported: not offered
+    assert not {"c5_1m", "c5_4m", "c5_1m_long", "c10_table"} & set(tc.PRESETS)

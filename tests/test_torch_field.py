@@ -63,7 +63,7 @@ def test_collect_noise_matches_reference(envs):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(num_features=2), dict(num_traits=2), dict(synth_inducing=20),
+    dict(num_features=2), dict(num_traits=2), dict(feature_warp="sin"),
     dict(data_path="data/sample_field.csv"), dict(feature_warp="tanh"),
 ])
 def test_unported_field_options_raise(kw):

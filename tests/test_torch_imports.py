@@ -21,6 +21,7 @@ def test_import_pulls_in_no_jax():
         "import algp_tpu_torch.convert, algp_tpu_torch.ops, algp_tpu_torch.ops.chol\n"
         "import algp_tpu_torch.cli, algp_tpu_torch.episode, algp_tpu_torch.planning\n"
         "import algp_tpu_torch.native, algp_tpu_torch.utils.checkpoint\n"
+        "import algp_tpu_torch.acquisition_lowrank, algp_tpu_torch.models.sparse_gp\n"
         "import algp_tpu_torch.utils.metrics\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
