@@ -10,8 +10,9 @@ and Python loops in place of `lax.scan` / `fori_loop`.  The paths that
 run: `acquisition.fit_and_select`, its low-rank counterpart
 `acquisition_lowrank.fit_and_select_lowrank`, and the config-5 episode
 (`episode.Agent`, `python -m algp_tpu_torch.cli`) with the exact or the
-low-rank (FITC) planner and exact or SGPR refits.  The entry points run
-on the CUDA card unless the caller asks for the CPU.
+low-rank (FITC) planner, exact or SGPR refits and the z-ensemble, up to
+the 2048 × 2048 field of the `c5_4m` preset.  The entry points run on
+the CUDA card unless the caller asks for the CPU.
 
 The reference's Pallas kernels are CUDA C++ kernels written for Hopper
 (`csrc/gram.cu`, `csrc/wtw_column.cu`, `csrc/chol.cu`), built with nvcc

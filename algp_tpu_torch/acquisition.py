@@ -29,8 +29,7 @@ value on the host; the episode reads the step's outputs in one copy.
 The low-rank (FITC) planner for larger grids is `acquisition_lowrank`;
 its per-set blocks go through `score_candidate_sets(P_lowrank=...)`.
 
-Not ported yet: `cond_solve`'s explicit-inverse branch for ≥ 2²⁰
-candidates, and `plan_path_step` / `complement_precision` (only the
+Not ported: `plan_path_step` / `complement_precision` (only the
 reference's tests call them); see ROADMAP.md.
 """
 
@@ -49,20 +48,22 @@ from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
 from algp_tpu_torch.ops.updates import wtw_column
 
 
-#: candidate count from which the reference conditions by an explicit
-#: inverse (its 2²⁰-candidate scale paths); not ported yet
+#: candidate count from which the (cap | M, N) solves of the conditioning
+#: pass and the low-rank seeds go through an explicit inverse, as in the
+#: reference
 COND_MATMUL_N = 1 << 20
 
 
 def cond_solve(L: torch.Tensor, B: torch.Tensor, n_global: int) -> torch.Tensor:
-    """L⁻¹ B for the conditioning pass, gated on the unpadded global
-    candidate count as in the reference: the triangular solve below
-    COND_MATMUL_N; the explicit-inverse branch above it is not ported."""
+    """L⁻¹ B for the conditioning pass and the low-rank seeds, gated on the
+    unpadded global candidate count as in the reference: the explicit
+    inverse's product (`la.solve_triangular_matmul`) from COND_MATMUL_N
+    on, the triangular solve below.  `n_global` is the whole field's
+    count even where B is a chunk or a few rows, so every consumer of one
+    episode stays in one arithmetic family.  The gate is read from the
+    module at each call (tests patch it)."""
     if n_global >= COND_MATMUL_N:
-        raise NotImplementedError(
-            f"conditioning over {n_global} ≥ 2^20 candidates (the scale "
-            "paths) is not ported to algp_tpu_torch yet; see ROADMAP.md"
-        )
+        return la.solve_triangular_matmul(L, B)
     return la.solve_triangular(L, B)
 
 
@@ -203,6 +204,7 @@ def _greedy_select(
     if num_pilot:
         C, d, taken_pilot, _ = _batch_pilot_condition(
             spec, params, x, pilot_nv, pilot_idx, pilot_count, d,
+            n_valid=n_valid,
         )
         taken = taken | taken_pilot
         B[:num_pilot] = C
@@ -290,14 +292,15 @@ def _mask_of(idx, valid, N):
 
 
 def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
-                           d0):
+                           d0, n_valid=None):
     """Condition the candidate field on all pilots in one batched op.
 
     Returns (C, d, taken, LA): C (m, N) the basis rows (row t is the
     normalised posterior-covariance row of pilot t given pilots < t), d
     the updated posterior variances, taken the pilot mask, LA the
     identity-padded Cholesky factor of K_AA + Σ_A.  Padded pilot slots
-    (≥ pilot_count) contribute exactly zero.
+    (≥ pilot_count) contribute exactly zero.  `n_valid`: the unpadded
+    candidate count for `cond_solve`'s gate (default: x's length).
     """
     dev = x.device
     m = pilot_idx.shape[0]
@@ -310,7 +313,7 @@ def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
     KA = torch.where(pair, KA, torch.eye(m, dtype=torch.float32, device=dev))
     LA = la.cholesky(KA)
     Kc = gram(spec, params, xA, x) * valid[:, None].to(torch.float32)
-    C = cond_solve(LA, Kc, N)
+    C = cond_solve(LA, Kc, N if n_valid is None else n_valid)
     d = d0 - torch.sum(C * C, dim=0)
     return C, d, _mask_of(pilot_idx, valid, N), LA
 

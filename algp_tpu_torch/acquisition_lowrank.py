@@ -21,10 +21,14 @@ with no host read, so a seed is queued without waiting.  The k-center
 chain is a Python loop whose index stays on the device.  Vᵀ is kept
 row-major: every round and every plan step gathers it by rows.
 
-Not ported (see ROADMAP.md): the z-ensemble (a (K, M, d) z stack,
-`ensemble > 1`), the streamed seed passes for (M, N) buffers past 5 GB
-and the ≥ 2²⁰-candidate explicit-inverse solves (`acquisition.cond_solve`
-raises there).
+From 2²⁰ candidates the seeds' (M, N) solves are products with an
+explicit inverse (`acquisition.cond_solve`).  The small-factor seed
+streams its candidate axis in chunks where the reference does (an (M, N)
+buffer past `_SEED_CHUNK_BYTES`), one Gram launch per chunk.  The
+z-ensemble (K inducing designs: a (K, M, d) z for the greedy loop, a
+list of K factors for the fused step) runs one seed per design and
+averages the K designs' MI scores before each argmax; the numerator's
+conditioning is shared.
 """
 
 from __future__ import annotations
@@ -52,6 +56,13 @@ from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
 #: relative jitter on K_zz (scaled by the outputscale): keeps the inducing
 #: Cholesky positive definite with near-duplicate centers
 _Z_JITTER = 1e-6
+
+#: `lowrank_factors_seed` streams its candidate axis in chunks of
+#: _SEED_CHUNK once the (M, N) buffer would pass _SEED_CHUNK_BYTES, as the
+#: reference does: chunking changes the order of B's sums, so the port
+#: computes the reference's function only where it chunks alike
+_SEED_CHUNK_BYTES = 5 * 2**30
+_SEED_CHUNK = 1 << 20
 
 
 def _seed_solve(L: torch.Tensor, B: torch.Tensor, n_global: int) -> torch.Tensor:
@@ -260,13 +271,10 @@ def greedy_select_lowrank(
     """Greedy Krause MI over N candidates with an M-inducing-point
     complement precision: `acquisition.greedy_select(strategy="mi")` past
     the exact N² seed.  z (M, dim): the inducing locations (a k-center
-    design, a sub-grid, or z = x, which reproduces the exact path).
+    design, a sub-grid, or z = x, which reproduces the exact path).  A
+    (K, M, dim) stack runs the z-ensemble: K seeds, and every round scores
+    (d + nv) · mean_k pdiag_k, the mean of the K designs' MI scores.
     Arguments and conventions otherwise as `acquisition.greedy_select`."""
-    if z.dim() != 2:
-        raise NotImplementedError(
-            "the z-ensemble (a (K, M, d) z stack) is not ported to "
-            "algp_tpu_torch yet; see ROADMAP.md"
-        )
     if pilot_count is None:
         pilot_count = num_pilot
     pilot_idx = pilot_idx.to(device=x.device, dtype=torch.int64)
@@ -299,21 +307,31 @@ def _greedy_select_lowrank(
     if num_pilot:
         C, d, taken_pilot, _ = _batch_pilot_condition(
             spec, params, x, pilot_nv, pilot_idx, pilot_count, d,
+            n_valid=n_valid,
         )
         taken = taken | taken_pilot
         B[:num_pilot] = C
 
-    lr = lowrank_precision_seed(spec, params, x, nv, z, n_valid=n_valid)
-    pdiag = lr.pdiag
-    F = torch.zeros((N, T), dtype=torch.float32, device=dev)
-    G = torch.zeros((T, N), dtype=torch.float32, device=dev)
-    if num_pilot:
-        F, G, pdiag = _pilot_delete_lowrank(lr, pilot_idx, pilot_count, F, G, pdiag)
+    # one seed and one (F, G, pdiag) state per design; the numerator's
+    # conditioning (B, d) does not depend on the design and stays single
+    ens = z.dim() == 3
+    states = []
+    for zk in (z.unbind(0) if ens else [z]):
+        lr = lowrank_precision_seed(spec, params, x, nv, zk, n_valid=n_valid)
+        F = torch.zeros((N, T), dtype=torch.float32, device=dev)
+        G = torch.zeros((T, N), dtype=torch.float32, device=dev)
+        pdiag = lr.pdiag
+        if num_pilot:
+            F, G, pdiag = _pilot_delete_lowrank(lr, pilot_idx, pilot_count,
+                                                F, G, pdiag)
+        states.append([lr, F, G, pdiag])
 
     scores = torch.full(
         (rounds if return_scores else 0, N), -torch.inf, device=dev
     )
     for r in range(rounds):
+        pdiag = (torch.mean(torch.stack([st[3] for st in states]), dim=0)
+                 if ens else states[0][3])
         s = torch.where(taken, -torch.inf, (d + nv) * pdiag)
         j1 = torch.argmax(s).reshape(1)  # device index, never read here
         if return_scores:
@@ -321,12 +339,15 @@ def _greedy_select_lowrank(
         t = num_pilot + r
         col = _posterior_col(spec, params, x, j1, B)
         B, d = _condition(B, d, col, j1, nv.index_select(0, j1), t)
-        u = _precision_col(lr, j1) - F @ G.index_select(1, j1)[:, 0]
-        pjj = pdiag.index_select(0, j1)
-        F[:, t] = u
-        G[t] = u / pjj
-        pdiag = pdiag - (u * u) / pjj
-        pdiag.index_fill_(0, j1, 1.0)
+        for st in states:
+            lr, F, G, pdiag = st
+            u = _precision_col(lr, j1) - F @ G.index_select(1, j1)[:, 0]
+            pjj = pdiag.index_select(0, j1)
+            F[:, t] = u
+            G[t] = u / pjj
+            pdiag = pdiag - (u * u) / pjj
+            pdiag.index_fill_(0, j1, 1.0)
+            st[3] = pdiag
         taken.index_fill_(0, j1, True)
         sel[r] = j1[0]
     return SelectionResult(selected=sel, post_var=d, scores=scores, basis=B)
@@ -362,16 +383,32 @@ def lowrank_factors_seed(
 ) -> LowRankFactors:
     """The small-factor seed: one O(N·M²) pass assembling B = I + A Uᵀ,
     nothing N-sized kept; the candidate noise derived from the params on
-    the device."""
+    the device.  Past `_SEED_CHUNK_BYTES` of (M, N) buffer the pass
+    streams the candidate axis in `_SEED_CHUNK` columns (one Gram launch
+    each), as the reference does; below it the one chunk is the whole."""
     M, N = z.shape[0], x.shape[0]
+    dev = x.device
     Lzz = _zz_factor(spec, params, z)
-    nv = _candidate_nv(params, N, x.device, min_noise, nv_mult)
-    Ut = _seed_solve(Lzz, gram_kernel(spec, params, z, x), N)  # (M, N)
-    qdiag = torch.sum(Ut * Ut, dim=0)
-    d = torch.clamp_min(gram_diag(spec, params, x) - qdiag, 0.0) + nv
-    A = Ut * (1.0 / d)[None, :]
-    B = _eye(M, x.device) + A @ Ut.T
-    return LowRankFactors(Lzz=Lzz, LB=la.cholesky(B), z=z)
+    # B = I + Σ_chunks A_c U_cᵀ.  The tail chunk is padded with x[0] rows
+    # whose A-columns are masked to zero, so every chunk has one shape and
+    # the padding adds nothing.  The solve family follows the global
+    # count; past the gate the explicit inverse is built once.
+    c = N if 4 * M * N <= _SEED_CHUNK_BYTES else min(_SEED_CHUNK, N)
+    n_pad = (N + c - 1) // c * c
+    x_pad = torch.cat([x, x[:1].expand(n_pad - N, x.shape[1])])
+    valid = (torch.arange(n_pad, device=dev) < N).to(torch.float32)
+    nv_c = _candidate_nv(params, c, dev, min_noise, nv_mult)
+    Lzz_inv = la.tri_inv(Lzz) if N >= _acq.COND_MATMUL_N else None
+    Bacc = torch.zeros((M, M), dtype=torch.float32, device=dev)
+    for i in range(n_pad // c):
+        xc = x_pad[i * c:(i + 1) * c]
+        Kzc = gram_kernel(spec, params, z, xc)
+        Uc = Lzz_inv @ Kzc if Lzz_inv is not None else la.solve_triangular(Lzz, Kzc)
+        qc = torch.sum(Uc * Uc, dim=0)
+        dc = torch.clamp_min(gram_diag(spec, params, xc) - qc, 0.0) + nv_c
+        Ac = Uc * (valid[i * c:(i + 1) * c] / dc)[None, :]
+        Bacc = Bacc + Ac @ Uc.T
+    return LowRankFactors(Lzz=Lzz, LB=la.cholesky(_eye(M, dev) + Bacc), z=z)
 
 
 def v_rows_at(
@@ -468,21 +505,18 @@ def plan_episode_step_lowrank_factors(
     sets: torch.Tensor,
     set_sizes: torch.Tensor,
     costs: torch.Tensor,
-    fac: LowRankFactors,
+    fac,
     *,
     min_noise: float = 1e-3,
     nv_mult: float = 1.0,
     path_utility: str = "per_cost",
-    ensemble: int = 1,
 ):
     """`plan_episode_step_lowrank` driven by the small-factor seed: the
     VT / dinv rows the step reads (the sampled set's and the path sets')
-    come from `v_rows_at`.  Returns (best, mean, post_var, scores)."""
-    if ensemble != 1:
-        raise NotImplementedError(
-            "the z-ensemble step (ensemble > 1) is not ported to "
-            "algp_tpu_torch yet; see ROADMAP.md"
-        )
+    come from `v_rows_at`.  `fac`: one design's `LowRankFactors`, or a
+    list of K for the z-ensemble, whose MI scores are computed per design
+    and averaged before the argmax; the conditioning and the posterior
+    metrics are computed once.  Returns (best, mean, post_var, scores)."""
     cap = idx_pad.shape[0]
     dev = x.device
     C, d, taken, mean, valid = _condition_and_mean(
@@ -494,22 +528,30 @@ def plan_episode_step_lowrank_factors(
     S, k = sets.shape
     rows = sets.reshape(-1)
     N = x.shape[0]
-    VA, dA = v_rows_at(spec, params, fac, x.index_select(0, idx_safe),
-                       torch.ones((cap,), device=dev) * nv_fut, N)
-    Vr, dr = v_rows_at(spec, params, fac, x.index_select(0, rows),
-                       torch.ones(rows.shape, device=dev) * nv_fut, N)
-    F_rows, ZT_rows = _corrections_rows(VA, dA, Vr, dr, rows, idx_safe, vdel)
-    P0 = _acq._pblk_lowrank_prior(sets, Vr.reshape(S, k, -1), dr.reshape(S, k))
-    Pblk = _acq._pblk_finish(
-        P0, F_rows.reshape(S, k, -1), ZT_rows.reshape(S, k, -1),
-        taken.index_select(0, rows).reshape(S, k),
-    )
+    x_del, x_rows = x.index_select(0, idx_safe), x.index_select(0, rows)
+    nv_del = torch.ones((cap,), device=dev) * nv_fut
+    nv_rows = torch.ones(rows.shape, device=dev) * nv_fut
+    tk = taken.index_select(0, rows).reshape(S, k)
     Bs = C.index_select(1, rows).reshape(cap, S, k).permute(1, 0, 2)
-    scores = _acq._score_sets_gathered(
-        spec, params, x.index_select(0, rows).reshape(S, k, -1), Bs,
-        torch.ones((S, k), device=dev) * nv_fut, set_sizes, Pblk,
-        strategy="mi", sets=sets,
-    )
+    nvs = torch.ones((S, k), device=dev) * nv_fut
+
+    def mi_scores(fac_k: LowRankFactors) -> torch.Tensor:
+        """The path sets' MI scores under one design's precision."""
+        VA, dA = v_rows_at(spec, params, fac_k, x_del, nv_del, N)
+        Vr, dr = v_rows_at(spec, params, fac_k, x_rows, nv_rows, N)
+        F_rows, ZT_rows = _corrections_rows(VA, dA, Vr, dr, rows, idx_safe, vdel)
+        P0 = _acq._pblk_lowrank_prior(sets, Vr.reshape(S, k, -1), dr.reshape(S, k))
+        Pblk = _acq._pblk_finish(
+            P0, F_rows.reshape(S, k, -1), ZT_rows.reshape(S, k, -1), tk)
+        return _acq._score_sets_gathered(
+            spec, params, x_rows.reshape(S, k, -1), Bs, nvs, set_sizes, Pblk,
+            strategy="mi", sets=sets,
+        )
+
+    if isinstance(fac, LowRankFactors):
+        scores = mi_scores(fac)
+    else:
+        scores = torch.mean(torch.stack([mi_scores(f) for f in fac]), dim=0)
     best = _acq.path_set_argmax(scores, set_sizes, costs, path_utility=path_utility)
     return best, mean, torch.clamp_min(d, 0.0), scores
 
@@ -532,14 +574,14 @@ def plan_episode_step_lowrank_metrics(
 def plan_episode_step_lowrank_factors_metrics(
     spec, params, x, idx_pad, count, noise_scale_pad, y_pad, sets, set_sizes,
     costs, fac, f_true, obs_mask, test_mask, *, min_noise=1e-3, nv_mult=1.0,
-    path_utility="per_cost", ensemble=1,
+    path_utility="per_cost",
 ):
     """`plan_episode_step_lowrank_factors` with the metrics reduced on the
     device: returns (best, rmse, rmse_test, mean_var, var_sites)."""
     best, mean, d, _ = plan_episode_step_lowrank_factors(
         spec, params, x, idx_pad, count, noise_scale_pad, y_pad, sets,
         set_sizes, costs, fac, min_noise=min_noise, nv_mult=nv_mult,
-        path_utility=path_utility, ensemble=ensemble,
+        path_utility=path_utility,
     )
     return _acq.device_metrics(best, mean, d, sets, f_true, obs_mask, test_mask)
 

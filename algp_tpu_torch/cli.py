@@ -3,6 +3,9 @@
     python -m algp_tpu_torch.cli --preset c5_10k              # on the card
     python -m algp_tpu_torch.cli --preset c5_100k             # low-rank planner
     python -m algp_tpu_torch.cli --preset c5_long             # SGPR refits
+    python -m algp_tpu_torch.cli --preset c5_1m               # 1024 × 1024
+    python -m algp_tpu_torch.cli --preset c5_4m --mi-ensemble 4   # 2048 × 2048
+    python -m algp_tpu_torch.cli --preset c5_1m_long          # long, 1M
     python -m algp_tpu_torch.cli --preset c5_100k --mode greedy \\
         --num-inducing 1024 --num-pilot 64 --acq-rounds 50    # greedy low-rank MI
     python -m algp_tpu_torch.cli --preset c5_episode --rows 8 --cols 12 \\
@@ -13,14 +16,15 @@ run goes to the card unless `--device cpu` asks for the CPU.  Modes:
 "episode" (the informative-path episode, episode.Agent) and "greedy"
 (pure greedy selection over every grid candidate, configs 3-4; MI past
 the exact range, or with --num-inducing M > 0, goes through the low-rank
-`acquisition_lowrank.greedy_select_lowrank` over a k-center design).
+`acquisition_lowrank.greedy_select_lowrank` over a k-center design;
+`--mi-ensemble K` averages K design variants in both modes).
 A grid of 320 × 320 needs the FITC truth (`--preset c5_100k`): the dense
 truth's 102 400² factor does not fit on the card.
 
 Not ported: `--plots` and `--profile-dir` (the reference's matplotlib
-figures and jax.profiler trace), the deep-kernel flags, `--mi-ensemble`,
-and whatever the field and episode do not support yet (they raise
-NotImplementedError; see ROADMAP.md).
+figures and jax.profiler trace), the deep-kernel flags, and whatever the
+field and episode do not support yet (they raise NotImplementedError;
+see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -87,6 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iters", type=int)
     p.add_argument("--restarts", type=int)
     p.add_argument("--acq-rounds", type=int, help="greedy rounds (configs 3-4)")
+    p.add_argument("--mi-ensemble", type=int,
+                   help="z-ensemble MI: average the scores of K k-center "
+                   "design variants (low-rank planner); 1 = off")
     p.add_argument("--path-utility", choices=("per_cost", "per_sample"))
     p.add_argument("--num-inducing", type=int,
                    help="0 = exact MI planner; unset = preset value or auto")
@@ -124,7 +131,8 @@ def config_from_args(args) -> ExperimentConfig:
               iters=args.iters, restarts=args.restarts,
               refit_iters=args.refit_iters, refit_restarts=args.refit_restarts)
     acqc = rep(acqc, strategy=args.strategy, rounds=args.acq_rounds,
-               num_inducing=args.num_inducing, path_utility=args.path_utility)
+               num_inducing=args.num_inducing, path_utility=args.path_utility,
+               mi_ensemble=args.mi_ensemble)
     field = rep(field, num_rows=args.rows, num_cols=args.cols,
                 num_features=args.features, noise_std=args.noise_std,
                 cheap_noise_mult=args.cheap_noise_mult, seed=args.seed)
@@ -142,7 +150,8 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
     """Configs 3-4: pilot → fit → `cfg.acquisition.rounds` greedy
     entropy / MI selections over every grid candidate → collect → refit →
     RMSE.  The fits draw their inits from generators seeded (seed + run,
-    0) and (seed + run, 1)."""
+    0) and (seed + run, 1).  `mi_ensemble` = K > 1 stacks K k-center
+    designs, the j-th starting at (j · n) // K, as the episode does."""
     from algp_tpu_torch import acquisition as acq
     from algp_tpu_torch import acquisition_lowrank as acq_lr
     from algp_tpu_torch.models import gp as gp_mod
@@ -155,10 +164,13 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
         if strategy is None:
             strategy, _ = resolve_strategy(cfg.acquisition.strategy, env.n)
         m_ind = resolve_num_inducing(cfg.acquisition.num_inducing, env.n)
-        if int(cfg.acquisition.mi_ensemble) > 1:
-            raise NotImplementedError(
-                "the z-ensemble (mi_ensemble > 1) is not ported to "
-                "algp_tpu_torch yet; see ROADMAP.md")
+        k_ens = max(1, int(cfg.acquisition.mi_ensemble))
+        if k_ens > 1 and (strategy != "mi" or not m_ind):
+            raise ValueError(
+                "mi_ensemble > 1 needs the low-rank planner "
+                "(num_inducing > 0 or auto above the crossover) — "
+                "the exact W seed has no design to vary"
+            )
         log = MetricsLogger(stream)
         pilot = np.unique(np.linspace(0, env.n - 1, cfg.episode.num_pilot)
                           .round().astype(np.int64))
@@ -180,9 +192,11 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
         pilot_d = torch.as_tensor(s.indices, device=env.device)
         if strategy == "mi" and m_ind:
             # large-grid MI: low-rank complement precision over a k-center
-            # design of the candidates
-            z = env.X.index_select(
-                0, acq_lr.kcenter_indices(env.X, min(m_ind, env.n)))
+            # design of the candidates (K variants for the z-ensemble)
+            m = min(m_ind, env.n)
+            zs = [env.X.index_select(0, acq_lr.kcenter_indices(
+                env.X, m, start=(j * env.n) // k_ens)) for j in range(k_ens)]
+            z = torch.stack(zs) if k_ens > 1 else zs[0]
             sel = acq_lr.greedy_select_lowrank(
                 cfg.kernel, res.params, env.X, nv, pilot_d, z,
                 rounds=cfg.acquisition.rounds, num_pilot=len(s.indices),

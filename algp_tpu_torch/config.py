@@ -6,10 +6,11 @@ one builds for the other.  The presets are the reference's for the
 configurations the port runs: c1-c4, the config-5 episode at reference
 scale (`c5_episode`), at the 10 000-point north-star grid (`c5_10k`),
 past the exact planner's range with the low-rank planner and the FITC
-truth (`c5_20k`, `c5_100k`) and as a long campaign with SGPR refits
-(`c5_long`).  The million-point presets (`c5_1m`, `c5_4m`, `c5_1m_long`)
-need the ≥ 2²⁰-candidate solves and the table preset (`c10_table`) the
-table loader, which are not ported yet (ROADMAP.md): they are not here.
+truth (`c5_20k`, `c5_100k`), as a long campaign with SGPR refits
+(`c5_long`), and the million-point regime (`c5_1m`, the 2048 × 2048
+`c5_4m`, `c5_1m_long`), whose solves go through an explicit inverse past
+2²⁰ candidates.  The table preset (`c10_table`) needs the table loader,
+which is not ported yet (ROADMAP.md): it is not here.
 """
 
 from __future__ import annotations
@@ -114,7 +115,9 @@ class AcquisitionConfig:
     num_inducing: Optional[int] = None
     # "per_cost" | "per_sample" (acquisition.path_set_argmax)
     path_utility: str = "per_cost"
-    mi_ensemble: int = 1  # z-ensemble MI of the low-rank planner (not ported)
+    # z-ensemble MI of the low-rank planner: K > 1 averages the MI scores
+    # of K k-center design variants (distinct start points); 1 = off
+    mi_ensemble: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,5 +269,44 @@ PRESETS: dict[str, ExperimentConfig] = {
                       refit_iters=60, refit_restarts=2),
         episode=EpisodeConfig(num_pilot=64, budget=4800.0, num_waypoints=80,
                               samples_per_step=10, refit_every=4),
+    ),
+    # 5 at 100× north-star scale (1024×1024 ≈ 1.05M points): FITC truth over
+    # 1 024 k-center points, the low-rank planner with M = 512.
+    "c5_1m": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=1024, num_cols=1024,
+                          true_ls_spatial=80.0, synth_inducing=1024),
+        acquisition=AcquisitionConfig(strategy="mi", num_inducing=512),
+        fit=FitConfig(refit_iters=60, refit_restarts=2),
+        episode=EpisodeConfig(num_pilot=128, budget=4096.0, num_waypoints=8,
+                              samples_per_step=10, refit_every=4),
+    ),
+    # 5 at 400× north-star scale (2048×2048 ≈ 4.19M points): the yield-aware
+    # path utility, and a hard capacity of 224 samples (the step's two
+    # (cap, N) panels); the truth and the seed stream their grid, the
+    # k-center design runs over the 1024×1024 sub-grid.
+    "c5_4m": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=2048, num_cols=2048,
+                          true_ls_spatial=160.0, synth_inducing=512),
+        acquisition=AcquisitionConfig(strategy="mi", num_inducing=512,
+                                      path_utility="per_sample"),
+        fit=FitConfig(refit_iters=60, refit_restarts=2),
+        episode=EpisodeConfig(num_pilot=96, budget=8192.0, num_waypoints=8,
+                              samples_per_step=8, refit_every=4,
+                              max_samples=224, hard_cap=True),
+    ),
+    # the c5_1m field as a long campaign (~42 steps): low-rank planning over
+    # 1.05M candidates and SGPR refits past 512 samples, capacity 640.
+    "c5_1m_long": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern32", ds=2, df=0),
+        field=FieldConfig(num_rows=1024, num_cols=1024,
+                          true_ls_spatial=80.0, synth_inducing=1024),
+        acquisition=AcquisitionConfig(strategy="mi", num_inducing=512),
+        fit=FitConfig(sparse_threshold=512, sparse_inducing=256,
+                      refit_iters=60, refit_restarts=2),
+        episode=EpisodeConfig(num_pilot=128, budget=20480.0, num_waypoints=40,
+                              samples_per_step=10, refit_every=4,
+                              max_samples=640),
     ),
 }

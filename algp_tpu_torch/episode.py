@@ -17,9 +17,12 @@ the next paths while the card works.  The Agent runs on its env's device.
 Planners: the exact implicit precision (W = L⁻¹ of the N × N seed) up to
 16 384 candidates, the low-rank FITC precision above
 (`resolve_num_inducing`, or `num_inducing` > 0): a k-center design of M
-points computed once per episode, the small-factor seed
+points computed once per episode (over a uniform sub-grid of about 2²⁰
+points past 2²¹ candidates), the small-factor seed
 (`acquisition_lowrank.lowrank_factors_seed`) per refit, and
 `plan_episode_step_lowrank_factors` per step, with the same one read.
+`mi_ensemble` = K > 1 (the z-ensemble) keeps K designs from K start
+points, K seeds per refit, and averages their MI scores in the step.
 Refits: the exact MLL fit, or, once the sampled set exceeds
 `FitConfig.sparse_threshold`, the collapsed SGPR bound over
 `sparse_inducing` k-center points of the sampled set
@@ -30,9 +33,8 @@ t)` (the reference's fold_in(PRNGKey(seed), t) cannot be reproduced in
 torch); the agent and env numpy generators are the reference's, so a
 uniform episode draws the same sites.
 
-Not ported (raise NotImplementedError, see ROADMAP.md): `mi_ensemble`
-(the z-ensemble), the k-center sub-grid past 2²¹ candidates, the deep
-feature kernel, multi-trait fields and the mesh episode.
+Not ported (raise NotImplementedError, see ROADMAP.md): the deep feature
+kernel, multi-trait fields and the mesh episode.
 """
 
 from __future__ import annotations
@@ -58,6 +60,27 @@ from algp_tpu_torch.utils.checkpoint import EpisodeState
 from algp_tpu_torch.utils.metrics import MetricsLogger
 
 STRATEGIES = ("mi", "entropy", "uniform", "naive")
+
+#: past _KCENTER_SUBSAMPLE candidates the low-rank planner's k-center
+#: design runs over a uniform sub-grid of about _KCENTER_TARGET points
+#: (`Agent._lowrank_z`), as the reference's does
+_KCENTER_SUBSAMPLE = 1 << 21
+_KCENTER_TARGET = 1 << 20
+
+
+def _kcenter_subgrid_indices(nr: int, nc: int, target: int) -> np.ndarray:
+    """Flat indices of a uniform sub-grid of a row-major nr × nc grid with
+    about `target` points: the stride s = ceil(nr·nc / target) is split
+    over both axes, s_c = ceil(√s) and s_r = ceil(s / s_c), so both axes
+    coarsen evenly (2048 × 2048 at 2²⁰ → strides 2 × 2, a 1024 × 1024
+    grid)."""
+    s = -(-(nr * nc) // target)
+    sc = 1
+    while sc * sc < s:
+        sc += 1
+    sr = -(-s // sc)
+    return (np.arange(0, nr, sr, dtype=np.int64)[:, None] * nc
+            + np.arange(0, nc, sc, dtype=np.int64)).ravel()
 
 
 def _not_ported(what: str):
@@ -150,14 +173,14 @@ class Agent:
                 f"unknown path_utility {cfg.acquisition.path_utility!r}; "
                 f"use {PATH_UTILITIES}"
             )
-        if int(cfg.acquisition.mi_ensemble) > 1:
-            if self._strategy == "mi" and not self._num_inducing:
-                raise ValueError(
-                    "mi_ensemble > 1 needs the low-rank planner "
-                    "(num_inducing > 0 or auto above the crossover) — "
-                    "the exact W seed has no design to vary"
-                )
-            raise _not_ported("z-ensemble MI (mi_ensemble > 1)")
+        self._mi_ensemble = max(1, int(cfg.acquisition.mi_ensemble))
+        if (self._mi_ensemble > 1 and self._strategy == "mi"
+                and not self._num_inducing):
+            raise ValueError(
+                "mi_ensemble > 1 needs the low-rank planner "
+                "(num_inducing > 0 or auto above the crossover) — "
+                "the exact W seed has no design to vary"
+            )
         if cfg.episode.waypoint_goals is not None:
             bad = [g for g in cfg.episode.waypoint_goals
                    if not 0 <= int(g) < env.n]
@@ -178,7 +201,7 @@ class Agent:
             ) * self._k_max
         self._max_samples = (cap + 7) // 8 * 8
         self._P_cache = None  # (params, W, WT) — exact implicit-precision seed
-        self._lr_cache = None  # (params, LowRankFactors) — low-rank seed
+        self._lr_cache = None  # (params, LowRankFactors or K of them) — low-rank seed
         self._z_cache = None  # the low-rank planner's inducing design
         self._post_cache = None  # (params, n_samples, Posterior)
         self._base_noise_cache = None
@@ -573,12 +596,25 @@ class Agent:
         """The low-rank planner's inducing design: a k-center chain of
         min(M, n) points over the candidates, which depends only on the
         candidate matrix, so it is computed once per episode (queued, no
-        host read).  The reference's sub-grid for chains past 2²¹
-        candidates is not ported: no ported path reaches that size."""
+        host read).  Past _KCENTER_SUBSAMPLE candidates the chain (M
+        sequential rounds over an (n,) vector) runs over a uniform
+        sub-grid instead.  With mi_ensemble = K > 1: a (K, M, d) stack of
+        K designs, the j-th starting at index (j · n_sub) // K."""
         if self._z_cache is None:
             xs = self._Xdev
+            if self.env.n > _KCENTER_SUBSAMPLE:
+                sub = _kcenter_subgrid_indices(
+                    self.env.num_rows, self.env.num_cols, _KCENTER_TARGET)
+                xs = xs.index_select(0, _upload(sub, torch.int64, self.device))
             m = min(self._num_inducing, xs.shape[0])
-            self._z_cache = xs.index_select(0, acq_lr.kcenter_indices(xs, m))
+            K = self._mi_ensemble
+            if K > 1:
+                self._z_cache = torch.stack([
+                    xs.index_select(0, acq_lr.kcenter_indices(
+                        xs, m, start=(j * xs.shape[0]) // K))
+                    for j in range(K)])
+            else:
+                self._z_cache = xs.index_select(0, acq_lr.kcenter_indices(xs, m))
         return self._z_cache
 
     def _lowrank_seed(self, st: EpisodeState, params=None):
@@ -586,14 +622,20 @@ class Agent:
         lowrank_factors_seed`: the Gram kernel for K_zx, an O(N·M²) pass,
         M × M factors kept), cached per fitted params and queued without
         waiting; the noise model is derived on the device.  `params`
-        overrides st.params (the lagged refit seeds its pending params)."""
+        overrides st.params (the lagged refit seeds its pending params).
+        The z-ensemble seeds each of its K designs: a list of K factors."""
         params = st.params if params is None else params
         cached = self._lr_cache
         if cached is None or cached[0] is not params:
-            fac = acq_lr.lowrank_factors_seed(
-                self.spec, params, self._Xdev, self._lowrank_z(),
-                min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
-            )
+            z = self._lowrank_z()
+
+            def seed(zk):
+                return acq_lr.lowrank_factors_seed(
+                    self.spec, params, self._Xdev, zk,
+                    min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
+                )
+
+            fac = [seed(zk) for zk in z.unbind(0)] if z.dim() == 3 else seed(z)
             self._lr_cache = (params, fac)
         return self._lr_cache[1]
 

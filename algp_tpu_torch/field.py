@@ -11,7 +11,9 @@ makes the 100k-point grids possible.  The draws come from one
 it; the FITC truth takes (M,) then (n,), in that order.  They cannot
 equal the reference's `jax.random` draws, so the two packages' truths
 differ; `draws` passes given draws instead (a test feeds the reference's).
-Everything else is host code, and the numpy generator
+Past `_SYNTH_CHUNK_BYTES` of (M, n) buffer the FITC draw streams the grid
+in `_SYNTH_CHUNK`-point chunks, one Gram launch each, as the reference
+does.  Everything else is host code, and the numpy generator
 `default_rng(cfg.seed)` is called in the reference's order, so the
 held-out split and the `collect` noise equal the reference's.
 
@@ -20,8 +22,7 @@ given `truth` (n,) replaces the draw, so a test can run both packages on
 the reference's field (`convert.field_env_like`).
 
 Not ported yet: phenotype tables, per-point features and feature warps,
-multiple traits, and the FITC truth's streamed pass for (M, n) buffers
-past 5 GB; see ROADMAP.md.
+and multiple traits; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -39,6 +40,13 @@ from algp_tpu_torch.ops.gram import gram_kernel
 from algp_tpu_torch.ops.kernels import KernelSpec, gram, gram_diag
 
 MODALITIES = ("precise", "cheap")
+
+#: the FITC truth streams its grid in _SYNTH_CHUNK points once the (M, n)
+#: K_zx buffer would pass _SYNTH_CHUNK_BYTES, as the reference does (a
+#: solve's bits depend on its right-hand side's width, so the port draws
+#: the reference's field only where it chunks alike)
+_SYNTH_CHUNK_BYTES = 5 * 2**30
+_SYNTH_CHUNK = 1 << 20
 
 
 def _not_ported(what: str):
@@ -157,19 +165,30 @@ class FieldEnv:
         over M k-center inducing points: an exact sample of
         N(0, Q + diag(k − q)), the family the low-rank planner conditions
         on.  K_zx (M, n) from the Gram kernel; L_zz by the host-reading
-        adaptive-jitter factor (once per field)."""
+        adaptive-jitter factor (once per field).  Streamed in chunks of
+        `_SYNTH_CHUNK` points past `_SYNTH_CHUNK_BYTES` of K_zx: the tail
+        is padded with row 0 and zero draws, and the padding truncated."""
         from algp_tpu_torch.acquisition_lowrank import kcenter_indices
 
-        m = min(self.cfg.synth_inducing, self.n)
+        m, n = min(self.cfg.synth_inducing, self.n), self.n
         z = self.X.index_select(0, kcenter_indices(self.X, m))
         eye = torch.eye(m, dtype=torch.float32, device=self.device)
         Kzz = gram(spec, params, z, z) + 1e-6 * float(self.cfg.true_outputscale) * eye
         Lzz, _ = la.safe_cholesky(Kzz, initial_jitter=1e-5)
-        zm, zn = normal(0, m), normal(1, self.n)
-        Ut = la.solve_triangular(Lzz, gram_kernel(spec, params, z, self.X))  # (m, n)
-        resid = torch.clamp_min(
-            gram_diag(spec, params, self.X) - torch.sum(Ut * Ut, dim=0), 0.0)
-        return (Ut.T @ zm + torch.sqrt(resid)[:, None] * zn)[:, 0]
+        zm, zn = normal(0, m), normal(1, n)
+
+        def draw(x, zn_x):
+            Ut = la.solve_triangular(Lzz, gram_kernel(spec, params, z, x))  # (m, |x|)
+            resid = torch.clamp_min(
+                gram_diag(spec, params, x) - torch.sum(Ut * Ut, dim=0), 0.0)
+            return (Ut.T @ zm + torch.sqrt(resid)[:, None] * zn_x)[:, 0]
+
+        c = n if 4 * m * n <= _SYNTH_CHUNK_BYTES else min(_SYNTH_CHUNK, n)
+        n_pad = (n + c - 1) // c * c
+        x_pad = torch.cat([self.X, self.X[:1].expand(n_pad - n, self.X.shape[1])])
+        zn_pad = torch.cat([zn, zn.new_zeros((n_pad - n, 1))])
+        return torch.cat([draw(x_pad[i:i + c], zn_pad[i:i + c])
+                          for i in range(0, n_pad, c)])[:n]
 
     # ------------------------------------------------------- index geometry
 

@@ -6,9 +6,8 @@ factor comes back as NaN, as `jnp.linalg.cholesky` returns it, instead of
 raising — so no loop reads `info` on the host.  Leading batch dimensions
 are supported throughout (the fit's restarts).
 
-Not ported yet: the panel-blocked solves (`blocked_solve_triangular`:
-the card's memory holds the episode's whole (cap, N) right-hand side),
-`solve_triangular_matmul` (the ≥ 2²⁰-candidate conditioning) and
+Not ported: the panel-blocked solves (`blocked_solve_triangular`: the
+card's memory holds the episode's whole (cap, N) right-hand side) and
 `spd_inverse*` (only the reference's tests call them); see ROADMAP.md.
 """
 
@@ -116,6 +115,16 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     Wᵀ = (Lᵀ)⁻¹ and W is that result's transpose view, row-major with no
     copy (the precision-column kernel reads W by rows)."""
     return torch.linalg.solve_triangular(L.mT, _eye_like(L), upper=True).mT
+
+
+def solve_triangular_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ B for a small lower factor and a huge right-hand side, as one
+    matrix product against the explicit inverse (`tri_inv`): the
+    reference's conditioning and seed solves past 2²⁰ candidates.  Every
+    column of the product is independent of the others, so a chunk of B
+    gives the same columns as the whole (up to the library's choice of
+    algorithm per shape)."""
+    return tri_inv(L) @ B
 
 
 def chol_append_row(

@@ -11,8 +11,10 @@ script exits non-zero and never prints the final line:
   2. build    — nvcc builds csrc/*.cu from the checkout (seconds, ptxas)
   3. gram     — the Gram kernel vs its plain PyTorch version on the card,
                 every kind + a composite at a ragged shape, RBF at the
-                main path's 10 240² and Matérn 3/2 at the low-rank seed's
-                1 024 × 102 400; times and bounds at both
+                main path's 10 240², Matérn 3/2 at the low-rank seed's
+                1 024 × 102 400 and the million-point seed's 512 × 1 048 576
+                (times and bounds at each), and one launch at c5_4m's
+                512 × 4 194 304 (2³¹ outputs) checked on sampled columns
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
                 and a ragged N; bitwise repeatability; times per call
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
@@ -42,6 +44,20 @@ script exits non-zero and never prints the final line:
   9d. episode_long — `c5_long` (~160 steps on the 10k grid) through the
                 CLI once: the checks of phase 9, and at least one refit by
                 the SGPR bound
+  9e. lowrank_1m — phase 9b at N = 1 048 576, M = 512 (lowrank_bench.py
+                --n-grid 1024 --inducing 512): the seeds' solves are
+                explicit-inverse products; the 30 × 30 oracle check runs
+                with the gate forced to 1
+  9f-9i. episode_1m, episode_4m, episode_4m_ens, episode_1m_long — the
+                presets `c5_1m`, `c5_4m`, `c5_4m --mi-ensemble 4` and
+                `c5_1m_long` through the CLI once each, with phase 9's
+                checks; the FITC truth's time and Gram chunks, the seeds'
+                chunks, the k-center chains' sizes and times, the seed's
+                time; c5_4m stops at its hard cap of 224 samples and
+                streams its truth and seed (at step 1 the streamed and the
+                monolithic seed pick the same path; their largest LB
+                difference is printed), c5_1m_long refits by SGPR and
+                keeps its capacity of 640
  10. chol     — the Cholesky kernel vs its plain version (cuSOLVER) and an
                 f64 factor at n = 997 (ragged), the episode's 10 000 seed
                 and the main path's 10 240 seed: residuals, errors, NaN on
@@ -54,9 +70,11 @@ script exits non-zero and never prints the final line:
  11. kernels  — one JSON line for all kernels: launches on the paths, error
                 against the plain version, kernel / plain / library ms and
                 the card's bound
-Each path (main, episode, lowrank_main, episode_100k, episode_long, the
+Each path (main, episode, lowrank_main, episode_100k, episode_long,
+lowrank_1m, episode_1m, episode_4m, episode_4m_ens, episode_1m_long, the
 Cholesky seed path) runs with the kernel counts set to 0 just before it
-and read just after.
+and read just after.  The line before the kernels line gives the
+script's total seconds.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -86,6 +104,16 @@ EPISODE_ARGS = ["--preset", "c5_10k"]  # the episode phase's command line
 LOWRANK_GRID, LOWRANK_M = 320, 1024
 EPISODE_100K_ARGS = ["--preset", "c5_100k"]
 EPISODE_LONG_ARGS = ["--preset", "c5_long"]
+# the million-point regime: greedy low-rank MI over a jittered 1024² grid
+# with 512 inducing points, and the episodes of the largest presets
+LOWRANK_1M_GRID, LOWRANK_1M_M = 1024, 512
+# the Gram kernel against 512 points of a side² integer grid at the
+# preset's lengthscale (c5_1m, timed; c5_4m, 2³¹ outputs, launched once)
+GRAM_SCALE_CASES = ((1024, 80.0, True), (2048, 160.0, False))
+EPISODE_1M_ARGS = ["--preset", "c5_1m"]
+EPISODE_4M_ARGS = ["--preset", "c5_4m"]
+EPISODE_4M_ENS_ARGS = ["--preset", "c5_4m", "--mi-ensemble", "4"]
+EPISODE_1M_LONG_ARGS = ["--preset", "c5_1m_long"]
 # the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and FP32 flop/s outside the tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -234,12 +262,45 @@ def phase_gram(dev) -> dict:
     rect["bound_ms"], rect["bound_by"] = bound(4 * (n1 * n2 + 2 * (n1 + n2)),
                                                n1 * n2 * (3 * spec.ds + 7))
     results.append(rect)
+    del xg, z
+    at = {f"at_{n1}x{n2}": rect}
+    # the million-point seed's K_zx: 512 points against the 1024² grid
+    # (c5_1m, ls 80), timed; then c5_4m's 512 × 2048² = 2³¹ outputs once,
+    # checked on sampled columns, the last ones included
+    for side, ls, timed in GRAM_SCALE_CASES:
+        p = spec.init_params(ls_spatial=ls, outputscale=1.0, device=dev)
+        r, c = np.divmod(np.arange(side * side), side)
+        xg = torch.tensor(np.stack([c, r], 1), dtype=torch.float32, device=dev)
+        z = xg[:: xg.shape[0] // 512][:512].contiguous()
+        n1, n2 = z.shape[0], xg.shape[0]
+        K = G.gram_kernel(spec, p, z, xg)
+        cols = torch.cat([torch.randint(0, n2, (8192,), device=dev),
+                          torch.arange(n2 - 64, n2, device=dev)])
+        err = float((K.index_select(1, cols)
+                     - G.gram_reference(spec, p, z, xg.index_select(0, cols))).abs().max())
+        del K
+        if not err <= 2e-6:
+            raise AssertionError(f"gram kernel vs plain at {n1}x{n2}: {err}")
+        worst = max(worst, err)
+        case = {"spec": "matern32", "shape": [n1, n2], "max_abs_err": err,
+                "checked": "8256 sampled columns"}
+        if timed:
+            case["ms"] = cuda_ms(lambda: G.gram_kernel(spec, p, z, xg), 5)
+            case["plain_ms"] = cuda_ms(lambda: G.gram_reference(spec, p, z, xg), 3)
+            case["bound_ms"], case["bound_by"] = bound(
+                4 * (n1 * n2 + 2 * (n1 + n2)), n1 * n2 * (3 * spec.ds + 7))
+        else:
+            case["ms"] = cuda_ms(lambda: G.gram_kernel(spec, p, z, xg), 1)
+        results.append(case)
+        at[f"at_{n1}x{n2}"] = case
+        del xg, z
+    torch.cuda.empty_cache()
     emit("gram", cases=results, tol="2e-6*s2", ms=ms, plain_ms=plain_ms,
          write_GBps=round(gbps, 1), bound_ms=bound_ms)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            f"at_{n1}x{n2}": {k: rect[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "max_abs_err")}}
+            **{k: {q: v[q] for q in keys if q in v} for k, v in at.items()}}
 
 
 def phase_wtw(dev) -> dict:
@@ -500,18 +561,46 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
     it.  Every plan call runs under torch's sync debug mode, which warns at
     each synchronizing operation: a step may make one (its read of the
     outputs).  `capture_step`: keep the agent and the state its timed run's
-    plan saw at that step (`agent`, `plan_state`)."""
+    plan saw at that step (`agent`, `plan_state`).  The timed run also
+    records, from host-side counts only, each k-center chain's size, each
+    small-factor seed's Gram launches (its chunks) and the FITC truth's
+    time (synchronised: it runs before the first plan) and launches."""
+    from algp_tpu_torch import acquisition_lowrank as acq_lr
     from algp_tpu_torch import cli, episode
+    from algp_tpu_torch import field as field_mod
     from algp_tpu_torch.models import sparse_gp
+    from algp_tpu_torch.ops import gram as G
     from algp_tpu_torch.utils import checkpoint as ckpt
 
     OUT.mkdir(parents=True, exist_ok=True)
     syncs: list[int] = []
     sparse_refits: list[int] = []
     captured: dict = {}
+    probes: dict = {"kcenter": [], "seed_chunks": [], "truth": []}
     orig = episode.Agent._plan_and_metrics
     orig_sparse = {k: getattr(sparse_gp, k)
                    for k in ("fit_step_sparse", "fit_step_sparse_warm")}
+    orig_kc, orig_seed = acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed
+    orig_truth = field_mod.FieldEnv._synthesize_lowrank
+
+    def kcenter(x, m, *a, **k):
+        probes["kcenter"].append([int(x.shape[0]), int(m)])
+        return orig_kc(x, m, *a, **k)
+
+    def seed(*a, **k):
+        g0 = G.LAUNCHES
+        out = orig_seed(*a, **k)
+        probes["seed_chunks"].append(G.LAUNCHES - g0)
+        return out
+
+    def truth(self, *a, **k):
+        torch.cuda.synchronize()
+        g0, t0 = G.LAUNCHES, time.perf_counter()
+        out = orig_truth(self, *a, **k)
+        torch.cuda.synchronize()
+        probes["truth"].append({"s": time.perf_counter() - t0,
+                                "gram_chunks": G.LAUNCHES - g0})
+        return out
 
     def counted(self, st):
         if capture_step is not None and st.step == capture_step and not captured:
@@ -547,6 +636,8 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
     episode.Agent._plan_and_metrics = counted
     for k in orig_sparse:
         setattr(sparse_gp, k, sparse_counted(k))
+    acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = kcenter, seed
+    field_mod.FieldEnv._synthesize_lowrank = truth
     try:
         warm_s = None
         if warm:
@@ -555,6 +646,8 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
             warm_s = time.perf_counter() - t0
         syncs.clear()
         sparse_refits.clear()
+        for v in probes.values():
+            v.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
@@ -568,9 +661,11 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
         episode.Agent._plan_and_metrics = orig
         for k, fn in orig_sparse.items():
             setattr(sparse_gp, k, fn)
+        acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = orig_kc, orig_seed
+        field_mod.FieldEnv._synthesize_lowrank = orig_truth
     return dict(summary=summary, history=history, state=st, syncs=list(syncs),
                 launches=launches, wall_s=wall_s, warm_s=warm_s, peak=peak,
-                sparse_refits=len(sparse_refits), **captured)
+                sparse_refits=len(sparse_refits), probes=probes, **captured)
 
 
 def check_episode(run: dict, args: list, workload: str, card: str) -> dict:
@@ -645,11 +740,15 @@ def phase_episode(dev, card: str) -> dict:
     return {"launches": run["launches"], "params": run["state"].params}
 
 
-def phase_lowrank_main(dev, oracle, card: str) -> dict:
-    """Greedy low-rank MI at N = 102 400 (benchmarks/lowrank_bench.py's
+def phase_lowrank_main(dev, oracle, card: str, grid: int = LOWRANK_GRID,
+                       m_ind: int = LOWRANK_M, reps: int = REPS,
+                       tag: str = "lowrank_main", gate: int = 0) -> dict:
+    """Greedy low-rank MI over a jittered grid² (benchmarks/lowrank_bench.py's
     workload) through `acquisition_lowrank.fit_and_select_lowrank`: one
-    warm-up and REPS timed runs with the counts zeroed before them, then
-    the layers one by one, then the small-size fidelity check."""
+    warm-up and `reps` timed runs with the counts zeroed before them, then
+    the layers one by one, then the small-size fidelity check (with
+    `acquisition.COND_MATMUL_N` set to `gate` when it is not 0)."""
+    from algp_tpu_torch import acquisition as acq
     from algp_tpu_torch import acquisition_lowrank as lr
     from algp_tpu_torch.config import FitConfig
     from algp_tpu_torch.models import gp
@@ -658,7 +757,7 @@ def phase_lowrank_main(dev, oracle, card: str) -> dict:
     spec = KernelSpec("matern32", ds=2)
     fitcfg = FitConfig(iters=60, restarts=4)
     rounds, num_pilot = 50, 64
-    x_np, pilot_np, y_np = lowrank_workload(LOWRANK_GRID, num_pilot)
+    x_np, pilot_np, y_np = lowrank_workload(grid, num_pilot)
     x = torch.tensor(x_np, device=dev)
     pilot = torch.tensor(pilot_np, device=dev)
     x_train, y = x.index_select(0, pilot), torch.tensor(y_np, device=dev)
@@ -666,14 +765,14 @@ def phase_lowrank_main(dev, oracle, card: str) -> dict:
     def run(seed):
         fit, sel = lr.fit_and_select_lowrank(
             spec, fitcfg, x_train, y, x, pilot, rounds=rounds, num_pilot=num_pilot,
-            num_inducing=LOWRANK_M, generator=torch.Generator(device=dev).manual_seed(seed))
+            num_inducing=m_ind, generator=torch.Generator(device=dev).manual_seed(seed))
         return fit, float(fit.nll.cpu()), sel.selected.cpu().numpy()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     times, per_run = [], []
-    for rep in range(REPS + 1):
+    for rep in range(reps + 1):
         c0 = _counts()
         t0 = time.perf_counter()
         fit, nll, sel = run(rep)
@@ -697,13 +796,14 @@ def phase_lowrank_main(dev, oracle, card: str) -> dict:
     nv = nv_base * torch.ones(x.shape[0], device=dev)
     layers = {"fit_ms": wall_ms(lambda: gp.fit(
         spec, fitcfg, x_train, y, generator=torch.Generator(device=dev).manual_seed(0)))}
-    layers["kcenter_ms"] = wall_ms(lambda: lr.kcenter_indices(x, LOWRANK_M))
-    z = x.index_select(0, lr.kcenter_indices(x, LOWRANK_M))
+    layers["kcenter_ms"] = wall_ms(lambda: lr.kcenter_indices(x, m_ind))
+    z = x.index_select(0, lr.kcenter_indices(x, m_ind))
     layers["seed_ms"] = wall_ms(lambda: lr.lowrank_precision_seed(spec, p, x, nv, z))
     greedy_ms = wall_ms(lambda: lr.greedy_select_lowrank(
         spec, p, x, nv, pilot, z, rounds=rounds, num_pilot=num_pilot))
     layers["rounds_ms"] = greedy_ms - layers["seed_ms"]
     layers["greedy_select_lowrank_ms"] = greedy_ms
+    del z
 
     # fidelity: on a 30 × 30 jittered grid, 150 k-center points, 6 pilots,
     # the card's 30 selections (kernel-built seed) equal the f64 oracle's
@@ -713,10 +813,15 @@ def phase_lowrank_main(dev, oracle, card: str) -> dict:
     xst = torch.tensor(xs, dtype=torch.float32, device=dev)
     zidx = lr.kcenter_indices(xst, 150)
     pil = np.linspace(0, len(xs) - 1, 6).round().astype(np.int64)
-    got = lr.greedy_select_lowrank(
-        sp, ps, xst, torch.full((len(xs),), 0.15 ** 2, device=dev),
-        torch.tensor(pil, device=dev), xst.index_select(0, zidx), rounds=30,
-        num_pilot=6).selected.cpu().numpy()
+    gate_n = acq.COND_MATMUL_N
+    acq.COND_MATMUL_N = gate or gate_n
+    try:
+        got = lr.greedy_select_lowrank(
+            sp, ps, xst, torch.full((len(xs),), 0.15 ** 2, device=dev),
+            torch.tensor(pil, device=dev), xst.index_select(0, zidx), rounds=30,
+            num_pilot=6).selected.cpu().numpy()
+    finally:
+        acq.COND_MATMUL_N = gate_n
     ref, _ = oracle.greedy_mi_selection_lowrank(
         oracle.gram(xs, xs, ls_spatial=3.0, outputscale=1.0), zidx.cpu().numpy(),
         0.15 ** 2, 30, pil)
@@ -724,15 +829,43 @@ def phase_lowrank_main(dev, oracle, card: str) -> dict:
         first = int(np.flatnonzero(got != ref)[0])
         raise AssertionError(f"low-rank selections differ from the f64 oracle from "
                              f"round {first}: {got[first:first + 5]} vs {ref[first:first + 5]}")
-    emit("lowrank_main",
-         workload=f"fit_and_select_lowrank N={x.shape[0]} (320x320 jittered grid, "
-                  f"matern32), M={LOWRANK_M} k-center, 64 pilots, adam 4x60, 50 MI rounds",
+    emit(tag,
+         workload=f"fit_and_select_lowrank N={x.shape[0]} ({grid}x{grid} jittered grid, "
+                  f"matern32), M={m_ind} k-center, 64 pilots, adam 4x60, 50 MI rounds",
          median_ms=float(np.median(times)), min_ms=float(min(times)), reps_ms=times,
          nll=nll, launches=launches, per_run_launches=per_run[0], layers=layers,
          peak_mem_GB=round(peak / 1e9, 3), first_selected=sel[:10].tolist(),
          fidelity="30x30 jittered, rbf ls 3, M 150, 6 pilots: 30/30 equal to the "
-                  "f64 low-rank oracle", card=card)
+                  "f64 low-rank oracle" + (f", COND_MATMUL_N = {gate}" if gate else ""),
+         card=card)
+    del x, x_train
+    torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+def plan_inputs(agent, st, dev):
+    """The fused step's inputs at a state an episode planned from: the
+    path batch the agent enumerates there, padded as it pads it.  Returns
+    (args, keyword arguments, mask of the real paths)."""
+    from algp_tpu_torch import planning
+
+    cfg = agent.cfg
+    batch = planning.enumerate_batch(
+        agent.env, st.pose, min(st.budget_left, cfg.episode.budget / cfg.episode.num_waypoints),
+        max_paths=agent._pad_paths, k_max=agent._k_max,
+        min_cost_frac=cfg.episode.min_cost_frac)
+    P = agent._pad_paths
+    sets = np.zeros((P, agent._k_max), np.int64)
+    sizes, costs = np.zeros(P, np.int64), np.ones(P, np.float32)
+    sets[:len(batch)], sizes[:len(batch)], costs[:len(batch)] = (
+        batch.sets, batch.sizes, batch.costs)
+    idx_pad, m, ns_pad, y_pad = agent._padded_obs(st)
+    common = dict(min_noise=cfg.fit.min_noise, nv_mult=agent._nv_mult,
+                  path_utility=agent._path_utility)
+    args = (agent.spec, st.params, agent._Xdev, idx_pad, m, ns_pad, y_pad,
+            torch.tensor(sets, device=dev), torch.tensor(sizes, device=dev),
+            torch.tensor(costs, device=dev))
+    return args, common, sizes > 0
 
 
 def phase_episode_100k(dev, card: str) -> dict:
@@ -741,7 +874,6 @@ def phase_episode_100k(dev, card: str) -> dict:
     timed run planned from at step 2, the small-factor step against the
     full-seed step."""
     from algp_tpu_torch import acquisition_lowrank as lr
-    from algp_tpu_torch import planning
 
     run = run_episodes(dev, EPISODE_100K_ARGS, "episode_100k", warm=True,
                        capture_step=2)
@@ -756,21 +888,7 @@ def phase_episode_100k(dev, card: str) -> dict:
 
     agent, st = run["agent"], run["plan_state"]
     cfg, dev_x = agent.cfg, agent._Xdev
-    batch = planning.enumerate_batch(
-        agent.env, st.pose, min(st.budget_left, cfg.episode.budget / cfg.episode.num_waypoints),
-        max_paths=agent._pad_paths, k_max=agent._k_max,
-        min_cost_frac=cfg.episode.min_cost_frac)
-    P = agent._pad_paths
-    sets = np.zeros((P, agent._k_max), np.int64)
-    sizes, costs = np.zeros(P, np.int64), np.ones(P, np.float32)
-    sets[:len(batch)], sizes[:len(batch)], costs[:len(batch)] = (
-        batch.sets, batch.sizes, batch.costs)
-    idx_pad, m, ns_pad, y_pad = agent._padded_obs(st)
-    common = dict(min_noise=cfg.fit.min_noise, nv_mult=agent._nv_mult,
-                  path_utility=agent._path_utility)
-    args = (agent.spec, st.params, dev_x, idx_pad, m, ns_pad, y_pad,
-            torch.tensor(sets, device=dev), torch.tensor(sizes, device=dev),
-            torch.tensor(costs, device=dev))
+    args, common, live = plan_inputs(agent, st, dev)
     z = agent._lowrank_z()
     fac = lr.lowrank_factors_seed(agent.spec, st.params, dev_x, z,
                                   min_noise=cfg.fit.min_noise, nv_mult=agent._nv_mult)
@@ -779,7 +897,6 @@ def phase_episode_100k(dev, card: str) -> dict:
     b_f, _, _, s_f = lr.plan_episode_step_lowrank_factors(*args, fac, **common)
     b_s, _, _, s_s = lr.plan_episode_step_lowrank(*args, full, **common)
     s_f, s_s = s_f.cpu().numpy(), s_s.cpu().numpy()
-    live = sizes > 0
     step_check = {"step": st.step, "paths": int(live.sum()), "best_factors": int(b_f),
                   "best_full_seed": int(b_s),
                   "max_rel_score_diff": float(np.max(np.abs(s_f - s_s)[live]
@@ -805,13 +922,19 @@ def phase_episode_long(dev, card: str) -> dict:
         "64 pilots, budget 4800, 80 waypoints, 10 samples/step, exact MI planner, "
         "warm refits 60x2 every 4 steps, SGPR over 256 k-center points past 512 "
         "samples", card)
-    if run["sparse_refits"] < 1:
-        raise AssertionError("no SGPR refit ran in c5_long")
-    # refit records: the fit ran on the samples the record counts, by the
-    # SGPR bound past the threshold
+    out.update(sgpr_checks(run, EPISODE_LONG_ARGS))
+    emit("episode_long", **out)
+    return {"launches": run["launches"]}
+
+
+def sgpr_checks(run: dict, args: list) -> dict:
+    """At least one SGPR refit, and one for every refit step past the
+    sparse threshold (the fit ran on the samples the record counts)."""
     from algp_tpu_torch import cli
 
-    cfg = cli.config_from_args(cli.build_parser().parse_args(EPISODE_LONG_ARGS))
+    if run["sparse_refits"] < 1:
+        raise AssertionError(f"no SGPR refit ran in {args}")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(args))
     thr = cfg.fit.sparse_threshold
     refits = [h for h in run["history"] if h["phase"] == "plan"
               and h["step"] % cfg.episode.refit_every == 0]
@@ -820,11 +943,173 @@ def phase_episode_long(dev, card: str) -> dict:
     if len(sgpr) != run["sparse_refits"]:
         raise AssertionError(f"SGPR refits: {run['sparse_refits']} calls, "
                              f"{len(sgpr)} refit steps past {thr} samples")
-    out.update(sgpr_refits=len(sgpr), exact_refits=len(exact),
-               sgpr_refit_s_median=float(np.median(sgpr)),
-               exact_refit_s_median=float(np.median(exact)) if exact else None)
-    emit("episode_long", **out)
-    return {"launches": run["launches"]}
+    return dict(sgpr_refits=len(sgpr), exact_refits=len(exact),
+                sgpr_refit_s_median=float(np.median(sgpr)),
+                exact_refit_s_median=float(np.median(exact)) if exact else None)
+
+
+def phase_episode_scale(dev, card: str, args: list, tag: str, workload: str,
+                        checks=None) -> dict:
+    """A million-point preset through the CLI, once, with phase 9's checks,
+    then its set-up layers timed one by one on the run's agent and final
+    params: the truth's k-center chain, the planner's design (the chains
+    of every design variant) and the per-refit seed.  `checks(run, out)`
+    adds the preset's own checks."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+
+    run = run_episodes(dev, args, tag, warm=False, capture_step=1)
+    out = check_episode(run, args, workload, card)
+    if run["launches"]["wtw_column"] != 0:
+        raise AssertionError(f"{tag} launches: {run['launches']}")
+    pr = run["probes"]
+    if len(pr["truth"]) != 1:
+        raise AssertionError(f"{tag}: FITC truth calls {pr['truth']}")
+    agent, st = run["agent"], run["state"]
+    out.update(truth_s=pr["truth"][0]["s"], truth_gram_chunks=pr["truth"][0]["gram_chunks"],
+               seeds=len(pr["seed_chunks"]), seed_gram_chunks=sorted(set(pr["seed_chunks"])),
+               kcenter_chains=pr["kcenter"], capacity=agent._max_samples,
+               z_shape=list(agent._lowrank_z().shape))
+    if checks is not None:
+        checks(run, out)
+    m_truth = agent.env.cfg.synth_inducing
+    layers = {"truth_kcenter_ms": wall_ms(lambda: lr.kcenter_indices(agent.env.X, m_truth))}
+    agent._z_cache = None
+    layers["design_ms"] = wall_ms(agent._lowrank_z)
+    agent._lr_cache = None
+    layers["seed_ms"] = wall_ms(lambda: agent._lowrank_seed(st))
+    out["layers"] = layers
+    emit(tag, **out)
+    del agent, run
+    torch.cuda.empty_cache()
+    return {"launches": out["launches"], "plan_ms_median": out["plan_ms_median"]}
+
+
+def _design_chain(agent) -> list:
+    """[candidates, M] of the planner's k-center chain: the whole grid, or
+    its sub-grid past episode._KCENTER_SUBSAMPLE candidates."""
+    from algp_tpu_torch import episode
+
+    env = agent.env
+    n = env.n
+    if n > episode._KCENTER_SUBSAMPLE:
+        n = len(episode._kcenter_subgrid_indices(env.num_rows, env.num_cols,
+                                                 episode._KCENTER_TARGET))
+    return [n, agent._num_inducing]
+
+
+def phase_episode_1m(dev, card: str) -> dict:
+    def checks(run, out):
+        if out["truth_gram_chunks"] != 1 or out["seed_gram_chunks"] != [1]:
+            raise AssertionError(f"c5_1m streamed its truth or seed: {out}")
+        if _design_chain(run["agent"]) not in out["kcenter_chains"]:
+            raise AssertionError(f"c5_1m design chains: {out['kcenter_chains']}")
+
+    return phase_episode_scale(
+        dev, card, EPISODE_1M_ARGS, "episode_1m",
+        "c5_1m via algp_tpu_torch.cli.main: 1024x1024 Matern-3/2 field (ls 80, "
+        "FITC truth over 1024 k-center points), 128 pilots, budget 4096, 8 "
+        "waypoints, 10 samples/step, low-rank MI planner M=512, warm refits 60x2 "
+        "every 4 steps, device metrics", checks)
+
+
+def _checks_4m(ensemble: int):
+    """c5_4m: no more samples than its hard cap, which does not grow; the
+    truth's and every seed's K_zx streamed in chunks of 2²⁰ points (4 at
+    2048²); the truth's chain over the whole grid, then one chain per
+    design over the 1024² sub-grid."""
+    def checks(run, out):
+        from algp_tpu_torch import acquisition_lowrank as lr
+        from algp_tpu_torch import field
+
+        agent = run["agent"]
+        cap, n = agent.cfg.episode.max_samples, agent.env.n
+        if out["samples"] > cap or out["capacity"] != cap:
+            raise AssertionError(f"c5_4m past its hard cap: {out['samples']} samples, "
+                                 f"capacity {out['capacity']}")
+        truth_chunks, seed_chunks = -(-n // field._SYNTH_CHUNK), -(-n // lr._SEED_CHUNK)
+        if (min(truth_chunks, seed_chunks) < 2 or out["truth_gram_chunks"] != truth_chunks
+                or out["seed_gram_chunks"] != [seed_chunks]):
+            raise AssertionError(f"c5_4m did not stream: {out}")
+        want = [[n, agent.env.cfg.synth_inducing]] + [_design_chain(agent)] * ensemble
+        if out["kcenter_chains"] != want:
+            raise AssertionError(f"c5_4m k-center chains: {out['kcenter_chains']}")
+        if out["seeds"] % ensemble:
+            raise AssertionError(f"c5_4m seeds {out['seeds']} for {ensemble} designs")
+    return checks
+
+
+def seed_streamed_vs_monolithic(run, dev) -> dict:
+    """At the state the run planned from at step 1: the small-factor seed
+    streamed (as the preset runs it) and monolithic (the gate lifted),
+    their largest LB difference, and the fused step's choice under each,
+    which must agree (bits may differ: the chunks change B's sums)."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+
+    agent, st = run["agent"], run["plan_state"]
+    args, common, live = plan_inputs(agent, st, dev)
+    kw = dict(min_noise=agent.cfg.fit.min_noise, nv_mult=agent._nv_mult)
+    z = agent._lowrank_z()
+    fac_s = lr.lowrank_factors_seed(agent.spec, st.params, agent._Xdev, z, **kw)
+    gate = lr._SEED_CHUNK_BYTES
+    lr._SEED_CHUNK_BYTES = 1 << 62
+    try:
+        fac_m = lr.lowrank_factors_seed(agent.spec, st.params, agent._Xdev, z, **kw)
+    finally:
+        lr._SEED_CHUNK_BYTES = gate
+    b_s, _, _, s_s = lr.plan_episode_step_lowrank_factors(*args, fac_s, **common)
+    b_m, _, _, s_m = lr.plan_episode_step_lowrank_factors(*args, fac_m, **common)
+    s_s, s_m = s_s.cpu().numpy()[live], s_m.cpu().numpy()[live]
+    diff = float((fac_s.LB - fac_m.LB).abs().max())
+    out = {"step": st.step, "paths": int(live.sum()), "max_abs_LB_diff": diff,
+           "max_abs_LB_diff_rel": diff / float(fac_m.LB.abs().max()),
+           "best_streamed": int(b_s), "best_monolithic": int(b_m),
+           "max_rel_score_diff": float(np.max(np.abs(s_s - s_m)
+                                              / np.abs(s_m).clip(1e-6)))}
+    if int(b_s) != int(b_m):
+        raise AssertionError(f"streamed and monolithic seeds pick different paths: {out}")
+    del fac_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_episode_4m(dev, card: str) -> dict:
+    def checks(run, out):
+        _checks_4m(1)(run, out)
+        out["seed_streamed_vs_monolithic"] = seed_streamed_vs_monolithic(run, dev)
+
+    return phase_episode_scale(
+        dev, card, EPISODE_4M_ARGS, "episode_4m",
+        "c5_4m via algp_tpu_torch.cli.main: 2048x2048 Matern-3/2 field (ls 160, "
+        "FITC truth over 512 k-center points, streamed), 96 pilots, budget 8192, "
+        "8 waypoints, 8 samples/step, low-rank MI planner M=512 over the 1024x1024 "
+        "sub-grid, per_sample utility, hard cap 224, warm refits 60x2 every 4 "
+        "steps, device metrics", checks)
+
+
+def phase_episode_4m_ens(dev, card: str, single: dict) -> dict:
+    def checks(run, out):
+        _checks_4m(4)(run, out)
+        out["plan_ms_median_single_design"] = single["plan_ms_median"]
+
+    return phase_episode_scale(
+        dev, card, EPISODE_4M_ENS_ARGS, "episode_4m_ens",
+        "c5_4m --mi-ensemble 4 via algp_tpu_torch.cli.main: as episode_4m, with "
+        "4 k-center design variants (starts j*2^20/4) averaged in every plan",
+        checks)
+
+
+def phase_episode_1m_long(dev, card: str) -> dict:
+    def checks(run, out):
+        out.update(sgpr_checks(run, EPISODE_1M_LONG_ARGS))
+        if out["capacity"] != run["agent"].cfg.episode.max_samples:
+            raise AssertionError(f"c5_1m_long grew its capacity to {out['capacity']}")
+
+    return phase_episode_scale(
+        dev, card, EPISODE_1M_LONG_ARGS, "episode_1m_long",
+        "c5_1m_long via algp_tpu_torch.cli.main: the c5_1m field, budget 20480, "
+        "40 waypoints, 10 samples/step, low-rank MI planner M=512, capacity 640, "
+        "warm refits 60x2 every 4 steps, SGPR over 256 k-center points past 512 "
+        "samples, device metrics", checks)
 
 
 def phase_chol(dev, main_run, episode_run, card: str) -> dict:
@@ -1002,6 +1287,7 @@ def phase_chol(dev, main_run, episode_run, card: str) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -1016,11 +1302,22 @@ def main() -> None:
     lowrank_run = phase_lowrank_main(dev, oracle, smi)
     episode_100k = phase_episode_100k(dev, smi)
     episode_long = phase_episode_long(dev, smi)
+    lowrank_1m = phase_lowrank_main(dev, oracle, smi, LOWRANK_1M_GRID, LOWRANK_1M_M,
+                                    reps=3, tag="lowrank_1m", gate=1)
+    episode_1m = phase_episode_1m(dev, smi)
+    episode_4m = phase_episode_4m(dev, smi)
+    episode_4m_ens = phase_episode_4m_ens(dev, smi, episode_4m)
+    episode_1m_long = phase_episode_1m_long(dev, smi)
     chol = phase_chol(dev, main_run, episode_run, smi)
     paths = {"main": main_run["launches"], "episode": episode_run["launches"],
              "lowrank_main": lowrank_run["launches"],
              "episode_100k": episode_100k["launches"],
              "episode_long": episode_long["launches"],
+             "lowrank_1m": lowrank_1m["launches"],
+             "episode_1m": episode_1m["launches"],
+             "episode_4m": episode_4m["launches"],
+             "episode_4m_ens": episode_4m_ens["launches"],
+             "episode_1m_long": episode_1m_long["launches"],
              "chol_seed": chol.pop("launches")}
 
     def entry(name, source, replaces, stats):
@@ -1029,6 +1326,7 @@ def main() -> None:
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, **stats}
 
+    emit("total", seconds=time.perf_counter() - t_start, card=smi)
     print(json.dumps({"kernels": [
         entry("gram", "algp_tpu_torch/csrc/gram.cu", "algp_tpu/ops/gram.py:103", gram),
         entry("wtw_column", "algp_tpu_torch/csrc/wtw_column.cu",

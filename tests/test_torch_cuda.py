@@ -479,3 +479,105 @@ def test_sparse_fit_on_card_equals_cpu(dev):
         out[str(d)] = (float(res.nll), mean.cpu().numpy())
     assert out[str(dev)][0] == pytest.approx(out["cpu"][0], rel=1e-4)
     np.testing.assert_allclose(out[str(dev)][1], out["cpu"][1], atol=2e-3)
+
+
+# ------------------------------------------------ the million-point regime
+
+
+@pytest.mark.parametrize("path_utility", ["per_cost", "per_sample"])
+def test_z_ensemble_step_on_card_equals_cpu(dev, path_utility):
+    """Twin of test_hw_fidelity's z-ensemble case: K = 3 small-factor
+    seeds, scores averaged before the argmax; the same path
+    on the card and the CPU, scores within 1e-3, metrics within 5e-3."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+
+    K_ens, n, cap, S_sets, k, M = 3, 156, 16, 12, 5, 36
+    rng = np.random.default_rng(41)
+    x_np = _jittered_grid(12, 13, seed=41).astype(np.float32)
+    spec = KernelSpec("rbf", ds=2)
+    idx = np.pad(rng.choice(n, 10, replace=False), (0, cap - 10))
+    y = np.pad(rng.standard_normal(10).astype(np.float32), (0, cap - 10))
+    sets = np.stack([rng.choice(n, k, replace=False) for _ in range(S_sets)])
+    sizes = rng.integers(2, k + 1, S_sets)
+    costs = rng.uniform(2.0, 6.0, S_sets).astype(np.float32)
+    zidx = [lr.kcenter_indices(torch.tensor(x_np), M, start=(j * n) // K_ens)
+            for j in range(K_ens)]
+
+    def run(d):
+        params = spec.init_params(ls_spatial=2.5, outputscale=1.2, noise=0.12, device=d)
+        x = torch.tensor(x_np, device=d)
+        facs = [lr.lowrank_factors_seed(spec, params, x, x[zi.to(d)]) for zi in zidx]
+        best, mean, var, scores = lr.plan_episode_step_lowrank_factors(
+            spec, params, x, torch.tensor(idx, device=d), 10,
+            torch.ones(cap, device=d), torch.tensor(y, device=d),
+            torch.tensor(sets, device=d), torch.tensor(sizes, device=d),
+            torch.tensor(costs, device=d), facs, path_utility=path_utility)
+        return int(best), mean.cpu().numpy(), var.cpu().numpy(), scores.cpu().numpy()
+
+    b_g, m_g, d_g, s_g = run(dev)
+    assert np.isfinite(s_g).all() and np.isfinite(m_g).all()
+    b_c, m_c, d_c, s_c = run("cpu")
+    assert b_g == b_c
+    np.testing.assert_allclose(s_g, s_c, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(m_g, m_c, atol=5e-3)
+    np.testing.assert_allclose(d_g, d_c, atol=5e-3)
+
+
+def test_chunked_and_monolithic_matmul_seeds_pick_the_same_sites(dev, cpu_inits,
+                                                                 monkeypatch):
+    """With the explicit-inverse gate forced on, a low-rank episode on the
+    card seeded by the streamed small-factor pass (chunks of 64 columns)
+    samples the sites of the one seeded by the monolithic pass; their
+    factors agree within 1e-5 of max|LB| (only the order of B's sums
+    differs)."""
+    import dataclasses
+
+    from algp_tpu_torch import acquisition as acq_mod
+    from algp_tpu_torch import acquisition_lowrank as lr
+    from algp_tpu_torch import config as tc
+    from algp_tpu_torch.convert import field_env_like
+    from algp_tpu_torch.episode import Agent
+    from algp_tpu_torch.field import FieldEnv
+
+    monkeypatch.setattr(acq_mod, "COND_MATMUL_N", 1)
+    cfg = _episode_cfg("mi", num_pilot=12, budget=40.0, samples_per_step=6, seed=5,
+                       device_metrics=True)
+    cfg = dataclasses.replace(
+        cfg, field=tc.FieldConfig(num_rows=12, num_cols=16, true_ls_spatial=3.0,
+                                  synth_inducing=48, seed=5),
+        acquisition=tc.AcquisitionConfig(strategy="mi", num_inducing=40))
+    env = FieldEnv(cfg.field, cfg.kernel, device=dev)
+    mono = Agent(field_env_like(env, dev), cfg)
+    res_m = mono.run(max_steps=6)
+    monkeypatch.setattr(lr, "_SEED_CHUNK_BYTES", 0)
+    monkeypatch.setattr(lr, "_SEED_CHUNK", 64)  # 64 ∤ 192: a padded tail
+    before = G.LAUNCHES
+    fac_c = lr.lowrank_factors_seed(cfg.kernel, res_m.state.params, env.X,
+                                    mono._lowrank_z())
+    assert G.LAUNCHES == before + 3  # one Gram launch per chunk
+    monkeypatch.setattr(lr, "_SEED_CHUNK_BYTES", 5 * 2**30)
+    fac_m = lr.lowrank_factors_seed(cfg.kernel, res_m.state.params, env.X,
+                                    mono._lowrank_z())
+    lb = fac_m.LB.abs().max().item()
+    assert (fac_c.LB - fac_m.LB).abs().max().item() <= 1e-5 * lb
+    monkeypatch.setattr(lr, "_SEED_CHUNK_BYTES", 0)
+    res_c = Agent(field_env_like(env, dev), cfg).run(max_steps=6)
+    np.testing.assert_array_equal(res_c.state.sampled_idx, res_m.state.sampled_idx)
+
+
+def test_gram_kernel_at_2_31_outputs(dev):
+    """512 inducing points against the 2048 × 2048 grid (c5_4m's K_zx,
+    2³¹ entries, 8.6 GB): sampled columns, the last ones included, equal
+    the plain version within 2e-6 · s²."""
+    spec = KernelSpec("matern32", ds=2)
+    p = spec.init_params(ls_spatial=160.0, outputscale=1.0, device=dev)
+    r, c = np.divmod(np.arange(2048 * 2048), 2048)
+    x = torch.tensor(np.stack([c, r], 1), dtype=torch.float32, device=dev)
+    z = x[:: x.shape[0] // 512][:512].contiguous()
+    K = G.gram_kernel(spec, p, z, x)
+    torch.cuda.synchronize()
+    cols = torch.cat([torch.randint(0, x.shape[0], (4096,),
+                                    generator=torch.Generator().manual_seed(0)),
+                      torch.arange(x.shape[0] - 64, x.shape[0])]).to(dev)
+    want = G.gram_reference(spec, p, z, x.index_select(0, cols))
+    assert (K.index_select(1, cols) - want).abs().max().item() <= 2e-6

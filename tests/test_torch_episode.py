@@ -134,9 +134,6 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(acquisition=tc.AcquisitionConfig(strategy="entropy", mi_ensemble=2)),
-    dict(acquisition=tc.AcquisitionConfig(strategy="mi", num_inducing=32,
-                                          mi_ensemble=2)),
     dict(deep=object(), acquisition=tc.AcquisitionConfig(strategy="mi",
                                                          num_inducing=32)),
     dict(deep=object()),
@@ -146,6 +143,25 @@ def test_unported_branches_raise(change):
     env = FieldEnv(cfg.field, cfg.kernel, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Agent(env, dataclasses.replace(cfg, **change))
+
+
+@pytest.mark.parametrize("strategy,num_inducing", [("entropy", None), ("mi", 32)])
+def test_ensemble_branches_equal_the_reference(strategy, num_inducing):
+    """mi_ensemble = 2 constructs as the reference's Agent does: the same
+    planner, and for the low-rank one the same two designs."""
+    jcfg, cfg = _configs("mi")
+    jcfg = dataclasses.replace(jcfg, acquisition=jc.AcquisitionConfig(
+        strategy=strategy, num_inducing=num_inducing, mi_ensemble=2))
+    cfg = dataclasses.replace(cfg, acquisition=tc.AcquisitionConfig(
+        strategy=strategy, num_inducing=num_inducing, mi_ensemble=2))
+    jenv = JFieldEnv(jcfg.field, jcfg.kernel)
+    ref, got = JAgent(jenv, jcfg), Agent(field_env_like(jenv, "cpu"), cfg)
+    for k in ("_strategy", "_num_inducing", "_mi_ensemble", "_max_samples"):
+        assert getattr(got, k) == getattr(ref, k), k
+    if num_inducing:
+        z = got._lowrank_z()
+        assert z.shape == (2, 32, 2)
+        np.testing.assert_array_equal(z.numpy(), np.asarray(ref._lowrank_z()))
 
 
 @pytest.mark.parametrize("change,error", [
@@ -175,6 +191,7 @@ def test_presets_equal_the_reference():
             assert mine == {k: theirs[k] for k in mine}, (name, part)
     assert tc.resolve_num_inducing(None, 10_000) == 0
     assert tc.resolve_num_inducing(None, 140 * 140) == 1024
-    assert {"c5_10k", "c5_episode", "c5_20k", "c5_100k", "c5_long"} <= set(tc.PRESETS)
-    # the million-point and table presets are not ported: not offered
-    assert not {"c5_1m", "c5_4m", "c5_1m_long", "c10_table"} & set(tc.PRESETS)
+    assert {"c5_10k", "c5_episode", "c5_20k", "c5_100k", "c5_long", "c5_1m",
+            "c5_4m", "c5_1m_long"} <= set(tc.PRESETS)
+    # the table preset needs the table loader, not ported: not offered
+    assert "c10_table" not in tc.PRESETS

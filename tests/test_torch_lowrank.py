@@ -296,8 +296,11 @@ def test_factors_step_picks_the_reference_path(rng):
     np.testing.assert_allclose(s2.numpy(), np.asarray(sj), rtol=2e-3, atol=2e-4)
     np.testing.assert_allclose(mean2.numpy(), np.asarray(meanj), atol=1e-4)
     np.testing.assert_allclose(d2.numpy(), np.asarray(dj), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlr.plan_episode_step_lowrank_factors(*targs, fac, ensemble=2)
+    # an ensemble of two copies of the design is the design
+    b3, mean3, _, s3 = tlr.plan_episode_step_lowrank_factors(
+        *targs, [fac, fac], nv_mult=1.5)
+    assert int(b3) == int(b2) and torch.equal(mean3, mean2)
+    np.testing.assert_allclose(s3.numpy(), s2.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_fitc_truth_on_given_draws_matches_reference():
