@@ -43,7 +43,7 @@ import torch
 from algp_tpu_torch.config import PATH_UTILITIES, FitConfig
 from algp_tpu_torch.models import gp as gp_mod
 from algp_tpu_torch.ops import linalg as la
-from algp_tpu_torch.ops.gram import gram_kernel_with_noise
+from algp_tpu_torch.ops.gram import gram_kernel, gram_kernel_with_noise
 from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
 from algp_tpu_torch.ops.updates import wtw_column
 
@@ -301,6 +301,11 @@ def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
     identity-padded Cholesky factor of K_AA + Σ_A.  Padded pilot slots
     (≥ pilot_count) contribute exactly zero.  `n_valid`: the unpadded
     candidate count for `cond_solve`'s gate (default: x's length).
+
+    The (m, N) cross-Gram goes through the Gram kernel (the reference's
+    plain `gram` here; the kernel's entries are the same bits for RBF and
+    Matérn 3/2) and so never materialises (m, N, d) differences; the small
+    m × m block stays plain.
     """
     dev = x.device
     m = pilot_idx.shape[0]
@@ -312,7 +317,7 @@ def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
     pair = valid[:, None] & valid[None, :]
     KA = torch.where(pair, KA, torch.eye(m, dtype=torch.float32, device=dev))
     LA = la.cholesky(KA)
-    Kc = gram(spec, params, xA, x) * valid[:, None].to(torch.float32)
+    Kc = gram_kernel(spec, params, xA, x) * valid[:, None].to(torch.float32)
     C = cond_solve(LA, Kc, N if n_valid is None else n_valid)
     d = d0 - torch.sum(C * C, dim=0)
     return C, d, _mask_of(pilot_idx, valid, N), LA

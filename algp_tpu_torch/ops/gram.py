@@ -23,11 +23,13 @@ from algp_tpu_torch.ops.kernels import gram as gram_reference
 #: kernel launches so far (a run can show that it went through the kernel)
 LAUNCHES = 0
 
-_MAX_DIM = 64  # coordinates per segment the kernel's shared tile holds
+_MAX_DIM = 64  # coordinates per segment the kernel takes
 
 
-def _scaled(x: torch.Tensor, log_ls: torch.Tensor) -> torch.Tensor:
-    return (x * torch.exp(-log_ls)).contiguous()
+def _scaled(x1: torch.Tensor, x2: torch.Tensor, log_ls: torch.Tensor):
+    """x1 and x2 times exp(-log_ls), as the plain version scales them."""
+    inv = torch.exp(-log_ls)
+    return (x1 * inv).contiguous(), (x2 * inv).contiguous()
 
 
 def _check(spec: KernelSpec, params: KernelParams, x1, x2) -> None:
@@ -71,11 +73,9 @@ def gram_kernel(
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
     if n1 == 0 or n2 == 0:
         return out
-    x1s = _scaled(x1[:, : spec.ds], params.log_ls_spatial)
-    x2s = _scaled(x2[:, : spec.ds], params.log_ls_spatial)
+    x1s, x2s = _scaled(x1[:, : spec.ds], x2[:, : spec.ds], params.log_ls_spatial)
     if spec.df:
-        x1f = _scaled(x1[:, spec.ds :], params.log_ls_feature)
-        x2f = _scaled(x2[:, spec.ds :], params.log_ls_feature)
+        x1f, x2f = _scaled(x1[:, spec.ds :], x2[:, spec.ds :], params.log_ls_feature)
         fk = KERNEL_KINDS.index(spec.feature_kind)
     else:
         x1f = x2f = None

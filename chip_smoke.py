@@ -8,13 +8,19 @@ script exits non-zero and never prints the final line:
 
   1. device   — CUDA present; torch, CUDA, nvcc versions; card name and
                 power limit (nvidia-smi)
-  2. build    — nvcc builds csrc/*.cu from the checkout (seconds, ptxas)
-  3. gram     — the Gram kernel vs its plain PyTorch version on the card,
-                every kind + a composite at a ragged shape, RBF at the
-                main path's 10 240², Matérn 3/2 at the low-rank seed's
-                1 024 × 102 400 and the million-point seed's 512 × 1 048 576
-                (times and bounds at each), and one launch at c5_4m's
-                512 × 4 194 304 (2³¹ outputs) checked on sampled columns
+  2. build    — nvcc builds csrc/*.cu from the checkout (seconds, ptxas), and
+                beside them the Gram kernel's previous, shared-tile design
+                (tools/gram_variants.cu); the SASS instructions per output
+                of the Gram kernel's hot loop (cuobjdump)
+  3. gram     — the Gram kernel vs its plain PyTorch version on the card:
+                bitwise for RBF and Matérn 3/2, within 2e-6·s² for Matérn
+                5/2 and a composite, at ragged shapes (n2 % 4 = 1, 2, 3 too);
+                then bitwise and timed in turns against the plain version
+                and the shared-tile design at the paths' shapes: RBF at the main
+                path's 10 240², Matérn 3/2 at the low-rank seed's
+                1 024 × 102 400, the million-point seeds' 512 × 1 048 576
+                and 512 × 4 194 304 (2³¹ outputs), and the conditioning
+                pass's 352 × 1 048 576, 640 × 1 048 576 and 224 × 4 194 304
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
                 and a ragged N; bitwise repeatability; times per call
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
@@ -29,8 +35,9 @@ script exits non-zero and never prints the final line:
                 planner) through `algp_tpu_torch.cli.main` in this process,
                 once to warm up and once timed: steps, samples, budget,
                 RMSE and held-out RMSE at the pilot and at the end,
-                calibration, plan / refit-step ms, launches, peak memory,
-                device→host syncs per planning step
+                calibration, plan / refit-step ms, launches (every plan
+                call launches the Gram kernel), peak memory, device→host
+                syncs per planning step
   9b. lowrank_main — greedy low-rank MI at N = 102 400
                 (`fit_and_select_lowrank`, benchmarks/lowrank_bench.py's
                 workload, M = 1 024): unique selections, no pilot picked
@@ -53,7 +60,10 @@ script exits non-zero and never prints the final line:
                 `c5_1m_long` through the CLI once each, with phase 9's
                 checks; the FITC truth's time and Gram chunks, the seeds'
                 chunks, the k-center chains' sizes and times, the seed's
-                time; c5_4m stops at its hard cap of 224 samples and
+                time; at c5_1m's step 1 the plan step with its (cap, N)
+                cross-Gram on the Gram kernel and on the plain `gram` (the
+                same C bit for bit, the same path; the pass's ms and peak
+                on each route); c5_4m stops at its hard cap of 224 samples and
                 streams its truth and seed (at step 1 the streamed and the
                 monolithic seed pick the same path; their largest LB
                 difference is printed), c5_1m_long refits by SGPR and
@@ -107,9 +117,10 @@ EPISODE_LONG_ARGS = ["--preset", "c5_long"]
 # the million-point regime: greedy low-rank MI over a jittered 1024² grid
 # with 512 inducing points, and the episodes of the largest presets
 LOWRANK_1M_GRID, LOWRANK_1M_M = 1024, 512
-# the Gram kernel against 512 points of a side² integer grid at the
-# preset's lengthscale (c5_1m, timed; c5_4m, 2³¹ outputs, launched once)
-GRAM_SCALE_CASES = ((1024, 80.0, True), (2048, 160.0, False))
+# the Gram kernel against n1 points of a side² integer grid at the preset's
+# lengthscale: the seeds' 512 (c5_1m; c5_4m, 2³¹ outputs) and the
+# conditioning pass's cap (c5_1m 352, c5_1m_long 640; c5_4m 224)
+GRAM_SCALE_CASES = ((1024, 80.0, (512, 352, 640)), (2048, 160.0, (512, 224)))
 EPISODE_1M_ARGS = ["--preset", "c5_1m"]
 EPISODE_4M_ARGS = ["--preset", "c5_4m"]
 EPISODE_4M_ENS_ARGS = ["--preset", "c5_4m", "--mi-ensemble", "4"]
@@ -173,15 +184,35 @@ def phase_device() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), smi
 
 
-def phase_build() -> None:
+def phase_build():
+    """Build the kernels, and beside them (in parallel) the Gram kernel's
+    shared-tile design from tools/gram_variants.cu, which phase 3 times against
+    the kernel; print the ptxas report and the SASS instructions per
+    output of the Gram kernel's hot loop.  Returns (gram tool, the
+    variants' library)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from algp_tpu_torch.ops import _cuda
 
+    tool = load_module("gram_profile", ROOT / "tools" / "gram_profile.py")
     t0 = time.perf_counter()
-    _cuda.library()
-    secs = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        variants = pool.submit(tool.build)
+        _cuda.library()
+        secs = time.perf_counter() - t0
+        variants = variants.result()
     ptxas = [l.split("ptxas info    : ")[-1].strip() for l in _cuda.build_log().splitlines()
              if "registers" in l or "spill" in l or "Compiling entry" in l]
-    emit("build", seconds=round(secs, 3), ptxas=ptxas)
+    emit("build", seconds=round(secs, 3), variants_seconds=round(time.perf_counter() - t0, 3),
+         ptxas=ptxas)
+    # instructions of the innermost storing loop over the outputs one trip
+    # writes; the shared-tile design's stores are straight-line code (None)
+    sass = tool.sass_per_output(_cuda.build(), tool.KERNEL_PATTERNS)
+    sass.update(tool.sass_per_output(variants, {
+        "shared_tile_matern32": "shared_tile_kernelILi1E", "shared_tile_rbf": "shared_tile_kernelILi0E"}))
+    emit("gram_sass", per_output={k: v and v.get("per_output") for k, v in sass.items()},
+         loops=sass)
+    return tool, tool.load(variants)
 
 
 def main_grid(dev):
@@ -194,113 +225,111 @@ def main_grid(dev):
     return x_pad
 
 
-def phase_gram(dev) -> dict:
+def phase_gram(dev, tool, variants) -> dict:
+    """The Gram kernel against its plain version: bitwise for RBF and
+    Matérn 3/2 (the kernel repeats the plain arithmetic in its order),
+    within 2e-6·s² for Matérn 5/2 and the composite (whose ÷3 and
+    per-segment sums may round apart), at ragged shapes (n2 % 4 = 1, 2, 3:
+    the 4-byte-store path) and at the paths' shapes; times in turns
+    (kernel, shared-tile design, plain, plain, shared-tile design, kernel) at the paths'
+    shapes: the main seed's 10 240² (RBF), the low-rank seed's
+    1 024 × 102 400 and the million-point seeds' 512 × 2²⁰ and 512 × 2²²,
+    and the conditioning pass's (cap, N) of c5_1m, c5_1m_long and c5_4m
+    (Matérn 3/2)."""
     from algp_tpu_torch.ops import gram as G
     from algp_tpu_torch.ops.kernels import KernelSpec
 
     rng = np.random.default_rng(0)
-    cases = [
-        (KernelSpec("rbf", ds=2), 997, 1283),
-        (KernelSpec("matern32", ds=2), 997, 1283),
-        (KernelSpec("matern52", ds=2), 997, 1283),
-        (KernelSpec("matern52", "rbf", ds=2, df=3), 997, 1283),
-    ]
-    worst = 0.0
-    results = []
-    for spec, n1, n2 in cases:
-        p = spec.init_params(ls_spatial=2.5, ls_feature=1.3, outputscale=1.7,
-                             device=dev)
+    bitwise = ("rbf", "matern32")
+    results, worst = [], 0.0
+
+    def check(spec, x1, x2):
+        nonlocal worst
+        K = G.gram_kernel(spec, p, x1, x2)
+        P = G.gram_reference(spec, p, x1, x2)
+        err = float((K - P).abs().max())
+        exact = spec.spatial_kind in bitwise and not spec.df
+        if not (torch.equal(K, P) if exact else err <= 2e-6 * 1.7):
+            raise AssertionError(f"gram kernel vs plain at {tuple(K.shape)} ({spec}): "
+                                 f"{err}{' (not bitwise)' if exact else ''}")
+        worst = max(worst, err)
+        return {"spec": f"{spec.spatial_kind}x{spec.feature_kind if spec.df else '-'}",
+                "shape": list(K.shape), "max_abs_err": err,
+                "tol": "bitwise" if exact else "2e-6*s2"}
+
+    for spec in (KernelSpec("rbf", ds=2), KernelSpec("matern32", ds=2),
+                 KernelSpec("matern52", ds=2), KernelSpec("matern52", "rbf", ds=2, df=3)):
+        p = spec.init_params(ls_spatial=2.5, ls_feature=1.3, outputscale=1.7, device=dev)
 
         def rand(n):
             xs = rng.uniform(0, 20, (n, spec.ds))
             xf = rng.standard_normal((n, spec.df))
-            return torch.tensor(np.concatenate([xs, xf], 1),
-                                dtype=torch.float32, device=dev)
+            return torch.tensor(np.concatenate([xs, xf], 1), dtype=torch.float32,
+                                device=dev)
 
-        x1, x2 = rand(n1), rand(n2)
-        err = float((G.gram_kernel(spec, p, x1, x2)
-                     - G.gram_reference(spec, p, x1, x2)).abs().max())
-        tol = 2e-6 * 1.7
-        results.append({"spec": f"{spec.spatial_kind}x{spec.feature_kind if spec.df else '-'}",
-                        "shape": [n1, n2], "max_abs_err": err})
-        if not err <= tol:
-            raise AssertionError(f"gram kernel vs plain: {err} > {tol} ({spec})")
-        worst = max(worst, err)
+        for n1, n2 in ((997, 1283), (63, 33), (513, 4000), (7, 4001), (64, 4002),
+                       (1, 4003)):
+            results.append(check(spec, rand(n1), rand(n2)))
 
+    def timed(spec, x1, x2, reps):
+        """Kernel (bitwise against plain), then times in turns: the plain
+        version `reps` launches a turn, the kernel and the shared-tile design 20
+        (so the first call's host latency does not count)."""
+        case = check(spec, x1, x2)
+        n1, n2 = x1.shape[0], x2.shape[0]
+        runs = {"ms": lambda: G.gram_kernel(spec, p, x1, x2),
+                "shared_tile_ms": lambda: tool.shared_tile(variants, spec, p, x1, x2),
+                "plain_ms": lambda: G.gram_reference(spec, p, x1, x2)}
+        order = list(runs)
+        turns = {k: [] for k in runs}
+        for k in order + order[::-1]:
+            turns[k].append(cuda_ms(runs[k], reps if k == "plain_ms" else 20))
+        case.update({k: float(np.mean(v)) for k, v in turns.items()})
+        # each output written once, inputs read once; per entry ds
+        # subtracts, multiplies and adds, then the form (RBF: a multiply and
+        # the exp; Matérn 3/2: the clamp, square root, two multiplies, an
+        # add and the exp) and the scale
+        case["bound_ms"], case["bound_by"] = bound(
+            4 * (n1 * n2 + spec.ds * (n1 + n2)),
+            n1 * n2 * (3 * spec.ds + (3 if spec.spatial_kind == "rbf" else 7)))
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        results.append(case)
+        return case
+
+    at = {}
     spec = KernelSpec("rbf", ds=2)
     p = spec.init_params(ls_spatial=8.0, outputscale=1.0, device=dev)
     x = main_grid(dev)
-    err = float((G.gram_kernel(spec, p, x, x)
-                 - G.gram_reference(spec, p, x, x)).abs().max())
-    if not err <= 2e-6:
-        raise AssertionError(f"gram kernel vs plain at 10240²: {err}")
-    worst = max(worst, err)
-    ms = cuda_ms(lambda: G.gram_kernel(spec, p, x, x))
-    plain_ms = cuda_ms(lambda: G.gram_reference(spec, p, x, x), reps=5)
-    gbps = x.shape[0] ** 2 * 4 / (ms * 1e-3) / 1e9
-    results.append({"spec": "rbf", "shape": [x.shape[0]] * 2, "max_abs_err": err})
-    n = x.shape[0]
-    # each output written once, inputs read once; per entry ds subtracts,
-    # multiplies and adds, the exp and the scale
-    bound_ms, bound_by = bound(4 * (n * n + 2 * n * spec.dim), n * n * (3 * spec.ds + 3))
+    main = timed(spec, x, x, 5)
     # the low-rank seed's K_zx: 1 024 inducing points against the 320 × 320
     # grid, Matérn 3/2 (the c5_100k truth's is 2 048 × 102 400)
     spec = KernelSpec("matern32", ds=2)
     p = spec.init_params(ls_spatial=25.0, outputscale=1.0, device=dev)
     xg = torch.tensor(lowrank_workload(LOWRANK_GRID)[0], device=dev)
     z = xg[:: xg.shape[0] // LOWRANK_M][:LOWRANK_M].contiguous()
-    err_r = float((G.gram_kernel(spec, p, z, xg)
-                   - G.gram_reference(spec, p, z, xg)).abs().max())
-    if not err_r <= 2e-6:
-        raise AssertionError(f"gram kernel vs plain at {LOWRANK_M}x{xg.shape[0]}: {err_r}")
-    worst = max(worst, err_r)
-    n1, n2 = z.shape[0], xg.shape[0]
-    rect = {"spec": "matern32", "shape": [n1, n2], "max_abs_err": err_r,
-            "ms": cuda_ms(lambda: G.gram_kernel(spec, p, z, xg)),
-            "plain_ms": cuda_ms(lambda: G.gram_reference(spec, p, z, xg), reps=5)}
-    # Matérn 3/2: a square root, two multiplies, an add and the exp more
-    rect["bound_ms"], rect["bound_by"] = bound(4 * (n1 * n2 + 2 * (n1 + n2)),
-                                               n1 * n2 * (3 * spec.ds + 7))
-    results.append(rect)
+    at[f"at_{z.shape[0]}x{xg.shape[0]}"] = timed(spec, z, xg, 5)
     del xg, z
-    at = {f"at_{n1}x{n2}": rect}
-    # the million-point seed's K_zx: 512 points against the 1024² grid
-    # (c5_1m, ls 80), timed; then c5_4m's 512 × 2048² = 2³¹ outputs once,
-    # checked on sampled columns, the last ones included
-    for side, ls, timed in GRAM_SCALE_CASES:
+    # side² integer grids at the preset's lengthscale: the seeds' 512
+    # points, then the conditioning pass's cap points (c5_1m, c5_1m_long,
+    # c5_4m), evenly strided
+    for side, ls, caps in GRAM_SCALE_CASES:
         p = spec.init_params(ls_spatial=ls, outputscale=1.0, device=dev)
         r, c = np.divmod(np.arange(side * side), side)
         xg = torch.tensor(np.stack([c, r], 1), dtype=torch.float32, device=dev)
-        z = xg[:: xg.shape[0] // 512][:512].contiguous()
-        n1, n2 = z.shape[0], xg.shape[0]
-        K = G.gram_kernel(spec, p, z, xg)
-        cols = torch.cat([torch.randint(0, n2, (8192,), device=dev),
-                          torch.arange(n2 - 64, n2, device=dev)])
-        err = float((K.index_select(1, cols)
-                     - G.gram_reference(spec, p, z, xg.index_select(0, cols))).abs().max())
-        del K
-        if not err <= 2e-6:
-            raise AssertionError(f"gram kernel vs plain at {n1}x{n2}: {err}")
-        worst = max(worst, err)
-        case = {"spec": "matern32", "shape": [n1, n2], "max_abs_err": err,
-                "checked": "8256 sampled columns"}
-        if timed:
-            case["ms"] = cuda_ms(lambda: G.gram_kernel(spec, p, z, xg), 5)
-            case["plain_ms"] = cuda_ms(lambda: G.gram_reference(spec, p, z, xg), 3)
-            case["bound_ms"], case["bound_by"] = bound(
-                4 * (n1 * n2 + 2 * (n1 + n2)), n1 * n2 * (3 * spec.ds + 7))
-        else:
-            case["ms"] = cuda_ms(lambda: G.gram_kernel(spec, p, z, xg), 1)
-        results.append(case)
-        at[f"at_{n1}x{n2}"] = case
-        del xg, z
+        for n1 in caps:
+            z = xg[:: xg.shape[0] // n1][:n1].contiguous()
+            at[f"at_{n1}x{xg.shape[0]}"] = timed(spec, z, xg, 3)
+            del z
+            torch.cuda.empty_cache()
+        del xg
     torch.cuda.empty_cache()
-    emit("gram", cases=results, tol="2e-6*s2", ms=ms, plain_ms=plain_ms,
-         write_GBps=round(gbps, 1), bound_ms=bound_ms)
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            **{k: {q: v[q] for q in keys if q in v} for k, v in at.items()}}
+    emit("gram", cases=results, tol="bitwise for rbf and matern32; 2e-6*s2 otherwise",
+         **{k: main[k] for k in ("ms", "shared_tile_ms", "plain_ms", "bound_ms")})
+    keys = ("ms", "shared_tile_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    return {"max_abs_err": worst, "ms": main["ms"], "shared_tile_ms": main["shared_tile_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            **{k: {q: v[q] for q in keys} for k, v in at.items()}}
 
 
 def phase_wtw(dev) -> dict:
@@ -456,8 +485,10 @@ def phase_main(dev, oracle, card: str) -> dict:
         if len(np.unique(sel)) != rounds or not (sel < n).all() or (sel < 0).any():
             raise AssertionError(f"bad selection {sel}")
     launches = _counts()
-    for g, u, c in per_episode:  # the seed's factor is the library's
-        if g < 1 or u != rounds or c != 0:
+    # Gram launches: the pilots' cross-Gram and the MI seed; the seed's
+    # factor is the library's
+    for g, u, c in per_episode:
+        if g != 2 or u != rounds or c != 0:
             raise AssertionError(f"episode launches gram {g}, wtw {u}, cholesky {c}")
 
     # the fitted NLL agrees with the f64 oracle's at the fitted params
@@ -574,6 +605,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
 
     OUT.mkdir(parents=True, exist_ok=True)
     syncs: list[int] = []
+    plan_grams: list[int] = []  # Gram kernel launches of each plan call
     sparse_refits: list[int] = []
     captured: dict = {}
     probes: dict = {"kcenter": [], "seed_chunks": [], "truth": []}
@@ -605,6 +637,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
     def counted(self, st):
         if capture_step is not None and st.step == capture_step and not captured:
             captured.update(agent=self, plan_state=dataclasses.replace(st))
+        g0 = G.LAUNCHES
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -613,6 +646,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+                plan_grams.append(G.LAUNCHES - g0)
 
     def sparse_counted(name):
         def fit(*a, **k):
@@ -645,6 +679,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
             run("warm")
             warm_s = time.perf_counter() - t0
         syncs.clear()
+        plan_grams.clear()
         sparse_refits.clear()
         for v in probes.values():
             v.clear()
@@ -664,6 +699,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
         acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = orig_kc, orig_seed
         field_mod.FieldEnv._synthesize_lowrank = orig_truth
     return dict(summary=summary, history=history, state=st, syncs=list(syncs),
+                plan_grams=list(plan_grams),
                 launches=launches, wall_s=wall_s, warm_s=warm_s, peak=peak,
                 sparse_refits=len(sparse_refits), probes=probes, **captured)
 
@@ -701,6 +737,10 @@ def check_episode(run: dict, args: list, workload: str, card: str) -> dict:
     # the seeds' factors are the library's: no Cholesky kernel launch
     if launches["gram"] < 1 or launches["cholesky"] != 0:
         raise AssertionError(f"episode launches: {launches}")
+    # every plan call launches the Gram kernel: a plan step's cross-Gram
+    # (plus any seed it queues), the final call's posterior
+    if min(run["plan_grams"]) < 1:
+        raise AssertionError(f"a plan call launched no Gram kernel: {run['plan_grams']}")
     # step wall time from the logger's clock: a step's record follows its
     # plan; refit steps (step % refit_every == 0) also queue the fit and seed
     t_prev = [pilot["t_wall"]] + [h["t_wall"] for h in plans[:-1]]
@@ -724,6 +764,7 @@ def check_episode(run: dict, args: list, workload: str, card: str) -> dict:
         pilot_fit_s=pilot.get("fit_s"),
         episode_wall_s=run["wall_s"], warmup_wall_s=run["warm_s"],
         syncs_per_plan=syncs, launches=launches,
+        plan_gram_launches=sorted(set(run["plan_grams"])),
         peak_mem_GB=round(run["peak"] / 1e9, 3), card=card,
     )
 
@@ -786,8 +827,10 @@ def phase_lowrank_main(dev, oracle, card: str, grid: int = LOWRANK_GRID,
             raise AssertionError(f"duplicate or pilot selections: {sel}")
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
-    for c in per_run:  # one Gram kernel launch per run: the seed's K_zx
-        if c["gram"] != 1 or c["wtw_column"] != 0 or c["cholesky"] != 0:
+    # two Gram kernel launches per run: the pilots' cross-Gram and the
+    # seed's K_zx
+    for c in per_run:
+        if c["gram"] != 2 or c["wtw_column"] != 0 or c["cholesky"] != 0:
             raise AssertionError(f"low-rank run launches: {c}")
 
     # the layers, at the last run's fitted params
@@ -997,12 +1040,63 @@ def _design_chain(agent) -> list:
     return [n, agent._num_inducing]
 
 
+def cross_gram_route(run, dev) -> dict:
+    """At the state the run planned from at step 1: the conditioning
+    pass's C and the fused step's choice with the (cap, N) cross-Gram on
+    the Gram kernel (the port's route) and on the plain `gram` (the
+    reference's), which must agree bit for bit; the pass's time and peak
+    memory on each route."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch import acquisition_lowrank as lr
+    from algp_tpu_torch.ops import gram as G
+
+    agent, st = run["agent"], run["plan_state"]
+    args, common, live = plan_inputs(agent, st, dev)
+    spec, params, x, idx_pad, m, ns_pad, y_pad = args[:7]
+    fac = lr.lowrank_factors_seed(spec, params, x, agent._lowrank_z(),
+                                  min_noise=agent.cfg.fit.min_noise, nv_mult=agent._nv_mult)
+
+    def step():
+        return (lr._condition_and_mean(spec, params, x, idx_pad, m, ns_pad, y_pad,
+                                       agent.cfg.fit.min_noise)[0],
+                lr.plan_episode_step_lowrank_factors(*args, fac, **common))
+
+    def pass_only():
+        return lr._condition_and_mean(spec, params, x, idx_pad, m, ns_pad, y_pad,
+                                      agent.cfg.fit.min_noise)
+
+    out = {"step": st.step, "cap": int(idx_pad.shape[0]), "N": int(x.shape[0])}
+    routes = {}
+    for route, fn in (("kernel", G.gram_kernel), ("plain", G.gram_reference)):
+        acq.gram_kernel = fn
+        try:
+            C, (best, _, _, scores) = step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out[f"{route}_pass_ms"] = cuda_ms(pass_only, 3)
+            out[f"{route}_pass_peak_GB"] = round(
+                (torch.cuda.max_memory_allocated() - base) / 1e9, 3)
+        finally:
+            acq.gram_kernel = G.gram_kernel
+        routes[route] = (C, int(best), scores.cpu().numpy()[live])
+    (Ck, bk, sk), (Cp, bp, sp) = routes["kernel"], routes["plain"]
+    out.update(C_bitwise_equal=bool(torch.equal(Ck, Cp)), best_kernel=bk, best_plain=bp,
+               scores_bitwise_equal=bool(np.array_equal(sk, sp)))
+    if not (out["C_bitwise_equal"] and bk == bp):
+        raise AssertionError(f"the kernel and the plain cross-Gram part: {out}")
+    del routes, Ck, Cp, fac
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_episode_1m(dev, card: str) -> dict:
     def checks(run, out):
         if out["truth_gram_chunks"] != 1 or out["seed_gram_chunks"] != [1]:
             raise AssertionError(f"c5_1m streamed its truth or seed: {out}")
         if _design_chain(run["agent"]) not in out["kcenter_chains"]:
             raise AssertionError(f"c5_1m design chains: {out['kcenter_chains']}")
+        out["cross_gram_route"] = cross_gram_route(run, dev)
 
     return phase_episode_scale(
         dev, card, EPISODE_1M_ARGS, "episode_1m",
@@ -1290,8 +1384,8 @@ def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    gram = phase_gram(dev)
+    tool, variants = phase_build()
+    gram = phase_gram(dev, tool, variants)
     wtw = phase_wtw(dev)
     oracle = load_module("oracle", ROOT / "tests" / "oracle.py")
     phase_fidelity(dev, oracle)

@@ -119,6 +119,34 @@ def test_batch_pilot_condition_with_padded_slots_matches_reference(rng):
     assert (tC[2:] == 0).all()
 
 
+def test_batch_pilot_condition_cross_gram_goes_through_the_gram_kernel(rng, monkeypatch):
+    """The (cap, N) cross-Gram of the conditioning pass is the Gram kernel's
+    wrapper (its plain version on the CPU, counted here), the cap × cap
+    block the plain `gram`; the pass still equals the reference's."""
+    params, tparams, x, K, nv = setup_field(rng, n=60)
+    pilot = np.array([3, 30, 7, 0])  # 3 real slots, 1 padded
+    d0 = np.ones(60, np.float32) * 1.5
+    shapes = []
+
+    def counted(spec, p, x1, x2):
+        shapes.append((tuple(x1.shape), tuple(x2.shape)))
+        return tk.gram(spec, p, x1, x2)
+
+    monkeypatch.setattr(tgram, "gram_reference", counted)
+    tC, td, _, _ = tacq._batch_pilot_condition(
+        tk.KernelSpec("rbf", ds=2), tparams, torch.tensor(x, dtype=torch.float32),
+        torch.full((4,), nv), torch.tensor(pilot), 3, torch.tensor(d0),
+    )
+    assert shapes == [((4, 2), (60, 2))]
+    C, d, _, _ = jacq._batch_pilot_condition(
+        KernelSpec("rbf", ds=2), params, jnp.asarray(x, jnp.float32),
+        jnp.full((4,), nv, jnp.float32), jnp.asarray(pilot, jnp.int32), jnp.asarray(3),
+        jnp.asarray(d0),
+    )
+    np.testing.assert_allclose(tC.numpy(), np.asarray(C), atol=1e-5)
+    np.testing.assert_allclose(td.numpy(), np.asarray(d), atol=1e-5)
+
+
 def test_pad_candidates_matches_reference(rng):
     x = rng.uniform(0, 5, (300, 2)).astype(np.float32)
     nv = np.full(300, 0.3, np.float32)

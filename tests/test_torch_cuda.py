@@ -40,8 +40,13 @@ def _rand(rng, n, spec, dev):
     KernelSpec("matern52", ds=2), KernelSpec("matern52", "rbf", ds=2, df=3),
     KernelSpec("rbf", "matern32", ds=1, df=4),
 ], ids=lambda s: f"{s.spatial_kind}-{s.feature_kind}-{s.ds}-{s.df}")
-@pytest.mark.parametrize("n1,n2", [(1, 1), (63, 33), (997, 1283)])
+@pytest.mark.parametrize("n1,n2", [(1, 1), (63, 33), (997, 1283)] + [
+    (n1, n2) for n1 in (1, 7, 64, 513) for n2 in (4000, 4001, 4002, 4003)])
 def test_gram_kernel_matches_plain(dev, spec, n1, n2):
+    """Spatial-only RBF and Matérn 3/2 repeat the plain arithmetic in its
+    order: equal bit for bit, with 16-byte rows (n2 % 4 == 0) and without
+    (the 4-byte store path), over one tile row and many.  Matérn 5/2 and
+    the composites within 2e-6 · s²."""
     rng = np.random.default_rng(n1 + n2)
     p = spec.init_params(ls_spatial=2.5, ls_feature=1.3, outputscale=1.7, device=dev)
     x1, x2 = _rand(rng, n1, spec, dev), _rand(rng, n2, spec, dev)
@@ -50,7 +55,31 @@ def test_gram_kernel_matches_plain(dev, spec, n1, n2):
     assert G.LAUNCHES == before + 1
     torch.cuda.synchronize()
     want = G.gram_reference(spec, p, x1, x2)
-    assert (got - want).abs().max().item() <= 2e-6 * 1.7
+    if spec.spatial_kind in ("rbf", "matern32") and not spec.df:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 2e-6 * 1.7
+
+
+def test_batch_pilot_condition_kernel_route_equals_plain(dev, monkeypatch):
+    """The conditioning pass's (cap, N) cross-Gram through the Gram kernel
+    gives the plain route's C, d and factor bit for bit (cap 96 with 80
+    live slots, N = 40 000, Matérn 3/2), with one kernel launch."""
+    spec = KernelSpec("matern32", ds=2)
+    rng = np.random.default_rng(96)
+    p = spec.init_params(ls_spatial=10.0, outputscale=1.3, noise=0.1, device=dev)
+    x = torch.tensor(rng.uniform(0, 200, (40000, 2)), dtype=torch.float32, device=dev)
+    idx = torch.tensor(rng.choice(40000, 96, replace=False), device=dev)
+    pnv = torch.full((96,), 0.01, device=dev)
+    d0 = torch.full((40000,), 1.3, device=dev)
+    before = G.LAUNCHES
+    got = acq._batch_pilot_condition(spec, p, x, pnv, idx, 80, d0)
+    assert G.LAUNCHES == before + 1
+    monkeypatch.setattr(acq, "gram_kernel", G.gram_reference)
+    want = acq._batch_pilot_condition(spec, p, x, pnv, idx, 80, d0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[0][80:] == 0).all()
 
 
 def test_gram_kernel_raises_instead_of_falling_back(dev):
@@ -424,7 +453,8 @@ def test_greedy_lowrank_equals_f64_oracle(dev, num_pilot):
         spec, params, xt, torch.full((len(x),), 0.15**2, device=dev),
         torch.tensor(pilot, device=dev), xt.index_select(0, zidx),
         rounds=30, num_pilot=num_pilot)
-    assert G.LAUNCHES == before + 1  # the seed's K_zx
+    # the seed's K_zx and, with pilots, their cross-Gram
+    assert G.LAUNCHES == before + 1 + (num_pilot > 0)
     K = oracle.gram(x, x, ls_spatial=3.0, outputscale=1.0)
     ref, _ = oracle.greedy_mi_selection_lowrank(K, zidx.cpu().numpy(), 0.15**2, 30,
                                                 pilot)
