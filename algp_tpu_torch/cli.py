@@ -8,6 +8,12 @@
     python -m algp_tpu_torch.cli --preset c5_1m_long          # long, 1M
     python -m algp_tpu_torch.cli --preset c5_100k --mode greedy \\
         --num-inducing 1024 --num-pilot 64 --acq-rounds 50    # greedy low-rank MI
+    python -m algp_tpu_torch.cli --preset c2_composite_restarts \\
+        --optimizer lbfgs                                     # features, L-BFGS
+    python -m algp_tpu_torch.cli --preset c10_table \\
+        --value-cols height,width,stand_count                 # 3-trait table
+    python -m algp_tpu_torch.cli --preset c5_10k --num-traits 3 \\
+        --trait-corr 0.5 --trait-obs-frac 0.5                 # 3 traits
     python -m algp_tpu_torch.cli --preset c5_episode --rows 8 --cols 12 \\
         --budget 24 --iters 10 --device cpu                   # on the CPU
 
@@ -17,14 +23,16 @@ run goes to the card unless `--device cpu` asks for the CPU.  Modes:
 (pure greedy selection over every grid candidate, configs 3-4; MI past
 the exact range, or with --num-inducing M > 0, goes through the low-rank
 `acquisition_lowrank.greedy_select_lowrank` over a k-center design;
-`--mi-ensemble K` averages K design variants in both modes).
+`--mi-ensemble K` averages K design variants in both modes).  On a
+multi-trait field (`--num-traits T`, or a table's `--value-cols`) both
+modes end with per-trait fits and report `trait_rmse_test`.
 A grid of 320 × 320 needs the FITC truth (`--preset c5_100k`): the dense
 truth's 102 400² factor does not fit on the card.
 
 Not ported: `--plots` and `--profile-dir` (the reference's matplotlib
-figures and jax.profiler trace), the deep-kernel flags, and whatever the
-field and episode do not support yet (they raise NotImplementedError;
-see ROADMAP.md).
+figures and jax.profiler trace), the deep-kernel flags `--deep-hidden` /
+`--deep-out`, and `--multi-fit icm`, which raises NotImplementedError
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ from algp_tpu_torch.config import (
 )
 from algp_tpu_torch.device import resolve_device
 from algp_tpu_torch.episode import Agent
-from algp_tpu_torch.field import FieldEnv
+from algp_tpu_torch.field import FEATURE_WARPS, FieldEnv
+from algp_tpu_torch.models import multifit
 from algp_tpu_torch.ops.kernels import KernelSpec
 from algp_tpu_torch.utils.metrics import MetricsLogger
 
@@ -74,6 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rows", type=int, help="field rows")
     p.add_argument("--cols", type=int, help="ranges per row")
     p.add_argument("--features", type=int, help="feature dims (composite kernel)")
+    p.add_argument("--feature-warp", choices=FEATURE_WARPS,
+                   help="synthetic truth's nonlinear feature structure "
+                   "(FieldConfig.feature_warp)")
     p.add_argument("--budget", type=float, help="episode travel budget")
     p.add_argument("--num-pilot", type=int)
     p.add_argument("--samples-per-step", type=int)
@@ -86,6 +98,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated grid indices the episode must visit "
                    "in order (informative strategies only)")
     p.add_argument("--cheap-noise-mult", type=float)
+    p.add_argument("--data-path", help="phenotype CSV (row,range,height,feat_*)")
+    p.add_argument("--num-traits", type=int,
+                   help="synthetic traits to phenotype (fit_multi batch)")
+    p.add_argument("--value-cols",
+                   help="comma-separated table value columns (multi-trait)")
+    p.add_argument("--trait-obs-frac", type=float,
+                   help="probability a secondary trait is measured at a "
+                   "visited plot (trait 0 always is)")
+    p.add_argument("--trait-corr", type=float,
+                   help="cross-trait correlation of synthetic multi-trait "
+                   "fields (equicorrelation mix; trait 0 unchanged)")
+    p.add_argument("--multi-fit", choices=("independent", "icm"),
+                   help="multi-trait model family: 'independent' = per-trait "
+                   "exact GPs (fit_multi); 'icm' is not ported yet")
+    p.add_argument("--icm-rank", type=int,
+                   help="rank of the ICM trait-covariance factor")
     p.add_argument("--optimizer", choices=("adam", "lbfgs"))
     p.add_argument("--lr", type=float)
     p.add_argument("--iters", type=int)
@@ -129,13 +157,20 @@ def config_from_args(args) -> ExperimentConfig:
     )
     fit = rep(fit, optimizer=args.optimizer, learning_rate=args.lr,
               iters=args.iters, restarts=args.restarts,
-              refit_iters=args.refit_iters, refit_restarts=args.refit_restarts)
+              refit_iters=args.refit_iters, refit_restarts=args.refit_restarts,
+              multi_fit=args.multi_fit, icm_rank=args.icm_rank)
     acqc = rep(acqc, strategy=args.strategy, rounds=args.acq_rounds,
                num_inducing=args.num_inducing, path_utility=args.path_utility,
                mi_ensemble=args.mi_ensemble)
     field = rep(field, num_rows=args.rows, num_cols=args.cols,
                 num_features=args.features, noise_std=args.noise_std,
-                cheap_noise_mult=args.cheap_noise_mult, seed=args.seed)
+                feature_warp=args.feature_warp,
+                cheap_noise_mult=args.cheap_noise_mult,
+                data_path=args.data_path, seed=args.seed,
+                num_traits=args.num_traits, trait_corr=args.trait_corr,
+                trait_obs_frac=args.trait_obs_frac,
+                value_cols=(tuple(args.value_cols.split(","))
+                            if args.value_cols else None))
     ep = rep(ep, budget=args.budget, num_pilot=args.num_pilot,
              samples_per_step=args.samples_per_step, seed=args.seed,
              modality=args.modality, min_cost_frac=args.min_cost_frac,
@@ -151,7 +186,10 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
     entropy / MI selections over every grid candidate → collect → refit →
     RMSE.  The fits draw their inits from generators seeded (seed + run,
     0) and (seed + run, 1).  `mi_ensemble` = K > 1 stacks K k-center
-    designs, the j-th starting at (j · n) // K, as the episode does."""
+    designs, the j-th starting at (j · n) // K, as the episode does.  On a
+    multi-trait field every trait is measured again at the sampled plots
+    and fitted from the (seed + run, 1) inits (`models.multifit`), and the
+    record gains `trait_rmse` / `trait_rmse_test`."""
     from algp_tpu_torch import acquisition as acq
     from algp_tpu_torch import acquisition_lowrank as acq_lr
     from algp_tpu_torch.models import gp as gp_mod
@@ -221,6 +259,14 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
             "final_rmse_test": env.rmse(mean, test_only=True),
             "mean_var": float(var.mean()),
         }
+        if env.num_traits > 1:
+            _, Y, _, _ = env.collect_traits(all_idx, "precise")
+            M = multifit.multitrait_mean_fields(
+                cfg.kernel, cfg.fit, env.X, all_idx, Y, None, env.observed_traits,
+                gp_mod.step_inits(cfg.kernel, cfg.fit, seed, 1, env.device))
+            rec["multi_fit"] = cfg.fit.multi_fit
+            rec["trait_rmse"] = env.rmse_traits(M)
+            rec["trait_rmse_test"] = env.rmse_traits(M, test_only=True)
         log.log(**rec)
         summaries.append(rec)
         print(json.dumps(rec))
@@ -230,6 +276,7 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    multifit.check_multi_fit(cfg.fit.multi_fit)
     device = resolve_device(args.device)
 
     if args.mode == "greedy":
@@ -272,6 +319,8 @@ def main(argv=None) -> int:
                 "mean_var": float(np.mean(result.var)),
                 "nlpd_test": _round4(result.calibration.get("nlpd_test")),
                 "cov95_test": _round4(result.calibration.get("cov95_test")),
+                **({"trait_rmse_test": [_round4(v) for v in result.trait_rmse_test]}
+                   if result.trait_rmse_test is not None else {}),
             })
             print(json.dumps(summaries[-1]))
             if args.checkpoint:

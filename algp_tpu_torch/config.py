@@ -9,23 +9,29 @@ past the exact planner's range with the low-rank planner and the FITC
 truth (`c5_20k`, `c5_100k`), as a long campaign with SGPR refits
 (`c5_long`), and the million-point regime (`c5_1m`, the 2048 × 2048
 `c5_4m`, `c5_1m_long`), whose solves go through an explicit inverse past
-2²⁰ candidates.  The table preset (`c10_table`) needs the table loader,
-which is not ported yet (ROADMAP.md): it is not here.
+2²⁰ candidates, and the real-table experiment (`c10_table`, the
+phenotype CSV in `data/`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 from algp_tpu_torch.ops.kernels import KernelSpec
+
+_SAMPLE_TABLE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "data", "sample_field.csv",
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class FitConfig:
     """Hyperparameter fitting: optimizer on the negative MLL."""
 
-    optimizer: str = "adam"  # "adam" ("lbfgs" is not ported yet)
+    optimizer: str = "adam"  # "adam" | "lbfgs"
     learning_rate: float = 0.05
     iters: int = 150
     restarts: int = 4
@@ -48,7 +54,7 @@ class FitConfig:
     # refit_restarts inits (0 keeps the full-fit value; models.gp.refit_cfg).
     refit_iters: int = 0
     refit_restarts: int = 0
-    # Multi-trait model family (not ported yet).
+    # Multi-trait model family (MULTI_FITS; "icm" is not ported yet).
     multi_fit: str = "independent"
     icm_rank: int = 1
 
@@ -122,9 +128,9 @@ class AcquisitionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
-    """Row-structured field environment.  Only the synthetic,
-    single-trait field without features is ported (field.py);
-    synth_inducing > 0 draws its truth from the FITC approximation."""
+    """Row-structured field environment (field.py): a synthetic GP truth
+    (FITC with synth_inducing > 0) or a phenotype table (data_path), with
+    per-point features and one or more traits."""
 
     num_rows: int = 25
     num_cols: int = 40
@@ -199,8 +205,7 @@ PRESETS: dict[str, ExperimentConfig] = {
         field=FieldConfig(num_rows=25, num_cols=40),
         fit=FitConfig(restarts=1),
     ),
-    # 2. Matérn + composite spatial×feature (the field with features is
-    # not ported yet: FieldEnv raises)
+    # 2. Matérn + composite spatial×feature, multi-restart fit.
     "c2_composite_restarts": ExperimentConfig(
         kernel=KernelSpec(spatial_kind="matern52", feature_kind="rbf", ds=2, df=3),
         field=FieldConfig(num_rows=25, num_cols=40, num_features=3),
@@ -308,5 +313,15 @@ PRESETS: dict[str, ExperimentConfig] = {
         episode=EpisodeConfig(num_pilot=128, budget=20480.0, num_waypoints=40,
                               samples_per_step=10, refit_every=4,
                               max_samples=640),
+    ),
+    # Real-table experiment: phenotype CSV with genotype features,
+    # composite spatial×feature kernel, mixed sensing modalities.
+    "c10_table": ExperimentConfig(
+        kernel=KernelSpec(spatial_kind="matern52", feature_kind="rbf",
+                          ds=2, df=3),
+        field=FieldConfig(num_rows=25, num_cols=40, num_features=3,
+                          data_path=_SAMPLE_TABLE),
+        acquisition=AcquisitionConfig(strategy="mi"),
+        episode=EpisodeConfig(num_pilot=32, budget=120.0, modality="mixed"),
     ),
 }

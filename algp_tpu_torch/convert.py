@@ -44,16 +44,30 @@ def kernel_params_to_numpy(params: KernelParams) -> dict:
 
 
 def field_env_like(ref_env, device=None) -> FieldEnv:
-    """A port FieldEnv with the reference env's config, truth `f`, masks
-    and sensing generator state (its next `collect` draws the same noise
-    as the reference's).  `ref_env` is read by attribute only."""
+    """A port FieldEnv with the reference env's config, traits, features,
+    masks, table standardisation and sensing generator state (its next
+    `collect` draws the same noise as the reference's).  `X` is built from
+    the carried features.  `ref_env` is read by attribute only."""
     cfg = FieldConfig(**{
         f.name: getattr(ref_env.cfg, f.name)
         for f in dataclasses.fields(FieldConfig)
     })
-    env = FieldEnv(cfg, device=device, truth=np.asarray(ref_env.f))
-    if not np.array_equal(env.f, ref_env.f):
-        raise ValueError("the reference truth is not exact in float32")
+    traits = np.array(ref_env.traits, np.float64)
+    if cfg.data_path is None:
+        env = FieldEnv(cfg, device=device, truth=traits)
+        if not np.array_equal(env.traits, traits):
+            raise ValueError("the reference truth is not exact in float32")
+    else:
+        env = FieldEnv(cfg, device=device)  # reads the table
+        env._y_mean = np.array(ref_env._y_mean)
+        env._y_std = np.array(ref_env._y_std)
+        env.traits = traits
+        env.f = traits[:, 0]
+        env.f_dev = torch.as_tensor(env.f.astype(np.float32), device=env.device)
+    env.features = np.array(ref_env.features, np.float32)
+    env.X = torch.cat([env.X[:, :2], torch.as_tensor(env.features, device=env.device)],
+                      dim=1)
+    env.observed_traits = np.array(ref_env.observed_traits, bool)
     env.observed_mask = np.array(ref_env.observed_mask, bool)
     env.test_mask = np.array(ref_env.test_mask, bool)
     env._rng.bit_generator.state = ref_env._rng.bit_generator.state

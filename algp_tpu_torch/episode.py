@@ -28,13 +28,21 @@ Refits: the exact MLL fit, or, once the sampled set exceeds
 `sparse_inducing` k-center points of the sampled set
 (`models.sparse_gp`).
 
+Multi-trait fields (`env.num_traits` > 1): the episode plans on trait 0
+while every visit measures all traits (`env.collect_traits`, kept row by
+row in `EpisodeState.y_traits`, NaN where a visit skipped a trait); at
+the end `models.multifit` fits every trait on the sampled plots and
+`EpisodeResult.trait_rmse` / `trait_rmse_test` score each against its own
+observation mask.
+
 Random streams: the fit inits of step t come from `gp.step_inits(seed,
-t)` (the reference's fold_in(PRNGKey(seed), t) cannot be reproduced in
-torch); the agent and env numpy generators are the reference's, so a
-uniform episode draws the same sites.
+t)` and the end-of-episode trait fits' from `multifit.trait_inits(seed)`
+(the reference's PRNGKey(seed) streams cannot be reproduced in torch);
+the agent and env numpy generators are the reference's, so a uniform
+episode draws the same sites.
 
 Not ported (raise NotImplementedError, see ROADMAP.md): the deep feature
-kernel, multi-trait fields and the mesh episode.
+kernel, the ICM trait family and the mesh episode.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ from algp_tpu_torch.config import (
 )
 from algp_tpu_torch.field import FieldEnv, Sample
 from algp_tpu_torch.models import gp as gp_mod
-from algp_tpu_torch.models import sparse_gp
+from algp_tpu_torch.models import multifit, sparse_gp
 from algp_tpu_torch.utils.checkpoint import EpisodeState
 from algp_tpu_torch.utils.metrics import MetricsLogger
 
@@ -127,7 +135,9 @@ class EpisodeResult:
     rmse: float  # over all ground-truth cells
     rmse_test: float  # over the held-out split only
     calibration: dict = dataclasses.field(default_factory=dict)
-    trait_rmse: Optional[list] = None  # multi-trait (not ported): None
+    # multi-trait envs: per-trait RMSE of the end-of-episode trait fits
+    # (trait 0 = the planning trait), all cells / held-out; else None
+    trait_rmse: Optional[list] = None
     trait_rmse_test: Optional[list] = None
 
 
@@ -138,8 +148,9 @@ class Agent:
                  logger: Optional[MetricsLogger] = None):
         if cfg.deep is not None:
             raise _not_ported("the deep feature kernel")
-        if env.num_traits > 1:
-            raise _not_ported("a multi-trait field")
+        self._multi_trait = env.num_traits > 1
+        if self._multi_trait:
+            multifit.check_multi_fit(cfg.fit.multi_fit)
         if cfg.fit.sparse_threshold and (
                 cfg.fit.sparse_threshold < cfg.fit.sparse_inducing):
             raise ValueError(
@@ -253,8 +264,14 @@ class Agent:
 
     # ------------------------------------------------------------ pilot
 
-    def _collect(self, idx, modality: str) -> Sample:
-        return self.env.collect(idx, modality)
+    def _collect(self, idx, modality: str):
+        """The env's measurement at `idx`: (Sample, trait rows), the trait
+        rows (k, T) on multi-trait envs (column 0 is the Sample's y), else
+        None."""
+        if self._multi_trait:
+            i, Y, scale, _ = self.env.collect_traits(idx, modality)
+            return Sample(indices=i, y=Y[:, 0], noise_scale=scale), Y
+        return self.env.collect(idx, modality), None
 
     def pilot_survey(self) -> EpisodeState:
         """Uniformly spread pilot samples (precise modality)."""
@@ -262,10 +279,11 @@ class Agent:
         idx = np.unique(
             np.linspace(0, self.env.n - 1, n_pilot).round().astype(np.int64)
         )
-        s = self._collect(idx, "precise")
+        s, Y = self._collect(idx, "precise")
         return EpisodeState(
             sampled_idx=s.indices, y=s.y, noise_scale=s.noise_scale,
             pose=int(s.indices[-1]), budget_left=self.cfg.episode.budget, step=0,
+            y_traits=Y,
         )
 
     # ------------------------------------------------------------ model
@@ -553,13 +571,15 @@ class Agent:
             return None
         return int(goals[st.goal_i])
 
-    def _sense(self, st: EpisodeState, sample_nodes: list) -> list:
-        """Collect along a path under the modality policy.  "mixed" spends
-        the precise sensor on the path's highest-posterior-variance site
-        and the cheap one on the rest."""
+    def _sense(self, st: EpisodeState, sample_nodes: list):
+        """Collect along a path under the modality policy: (samples, trait
+        rows), the rows as `_collect`'s.  "mixed" spends the precise sensor
+        on the path's highest-posterior-variance site and the cheap one on
+        the rest."""
         policy = self.cfg.episode.modality
         if policy in ("precise", "cheap"):
-            return [self._collect(sample_nodes, policy)]
+            s, Y = self._collect(sample_nodes, policy)
+            return [s], Y
         if policy != "mixed":
             raise ValueError(f"unknown modality policy {policy!r}")
         if self._step_site_var is not None:  # device metrics: site order
@@ -571,10 +591,11 @@ class Agent:
             pv = pvar.cpu().numpy()[np.asarray(sample_nodes)]
         best = int(np.argmax(pv))
         cheap_nodes = [n for i, n in enumerate(sample_nodes) if i != best]
-        out = [self._collect([sample_nodes[best]], "precise")]
+        got = [self._collect([sample_nodes[best]], "precise")]
         if cheap_nodes:
-            out.append(self._collect(cheap_nodes, "cheap"))
-        return out
+            got.append(self._collect(cheap_nodes, "cheap"))
+        samples, Ys = zip(*got)
+        return list(samples), np.concatenate(Ys) if self._multi_trait else None
 
     def _precision_seed(self, st: EpisodeState, params=None):
         """(W, WT) implicit-precision seed, cached per fitted params (one
@@ -659,8 +680,19 @@ class Agent:
         ep = self.cfg.episode
         if resume_from is not None:
             st = resume_from
-            if st.y_traits is not None or st.mlp is not None:
-                raise _not_ported("resuming a multi-trait or deep-kernel episode")
+            if st.mlp is not None:
+                raise _not_ported("resuming a deep-kernel episode")
+            # a multi-trait env needs the checkpoint's (n, T) trait rows (the
+            # pilot's cannot be measured again): fail here, not mid-step
+            ckpt_traits = st.y_traits.shape[1] if st.y_traits is not None else 1
+            if (self._multi_trait or ckpt_traits > 1) and (
+                    ckpt_traits != self.env.num_traits):
+                raise ValueError(
+                    f"checkpoint/config trait mismatch: checkpoint has "
+                    f"{ckpt_traits} trait column(s), env has "
+                    f"{self.env.num_traits} (resume with the same "
+                    f"num_traits/value_cols the checkpoint was written with)"
+                )
             if st.rng_state is not None:
                 if "agent" in st.rng_state:
                     self.rng.bit_generator.state = st.rng_state["agent"]
@@ -700,12 +732,14 @@ class Agent:
             st.step += 1
             nodes, cost, sample_nodes = bundle.nodes, bundle.cost, bundle.sites
             t0 = time.perf_counter()
-            samples = self._sense(st, sample_nodes)
+            samples, trait_rows = self._sense(st, sample_nodes)
             st.sampled_idx = np.concatenate(
                 [st.sampled_idx] + [s.indices for s in samples])
             st.y = np.concatenate([st.y] + [s.y for s in samples])
             st.noise_scale = np.concatenate(
                 [st.noise_scale] + [s.noise_scale for s in samples])
+            if trait_rows is not None:
+                st.y_traits = np.concatenate([st.y_traits, trait_rows])
             st.pose = int(nodes[-1])
             st.budget_left -= cost
             t_sense = time.perf_counter() - t0
@@ -769,9 +803,30 @@ class Agent:
                       self.env.calibration(mean, var, test_only=True).items()})
         self.logger.log(step=st.step, phase="calibration",
                         **{k: round(v, 6) for k, v in calib.items()})
+        trait_rmse = trait_rmse_test = None
+        if self._multi_trait:
+            trait_rmse, trait_rmse_test = self._trait_posteriors(st)
+            self.logger.log(step=st.step, phase="traits",
+                            trait_rmse=[round(v, 6) for v in trait_rmse],
+                            trait_rmse_test=[round(v, 6) for v in trait_rmse_test])
         return EpisodeResult(
             state=st, history=self.logger.history, mean=mean, var=var,
             rmse=self.env.rmse(mean),
             rmse_test=self.env.rmse(mean, test_only=True),
             calibration=calib,
+            trait_rmse=trait_rmse, trait_rmse_test=trait_rmse_test,
         )
+
+    def _trait_posteriors(self, st: EpisodeState):
+        """End-of-episode multi-trait evaluation: every trait fitted on the
+        campaign's plots (`multifit.multitrait_mean_fields`: one batched
+        `gp.fit_multi`, or per-trait fits where visits skipped traits),
+        then each trait's posterior mean field scored against its own
+        observation mask.  Returns (trait_rmse, trait_rmse_test)."""
+        M = multifit.multitrait_mean_fields(
+            self.spec, self.cfg.fit, self._Xdev, np.asarray(st.sampled_idx),
+            st.y_traits, st.noise_scale, self.env.observed_traits,
+            multifit.trait_inits(self.spec, self.cfg.fit, self.cfg.episode.seed,
+                                 self.device),
+        )
+        return self.env.rmse_traits(M), self.env.rmse_traits(M, test_only=True)

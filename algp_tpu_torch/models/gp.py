@@ -7,8 +7,15 @@ from the sum of the per-restart NLLs — the restarts share no parameter,
 so each one's gradient (and any NaN) stays its own.  Adam is written out
 in optax's order of operations (`optax.scale_by_adam`, then the scale by
 −lr, then `apply_updates`), so the port follows the reference step for
-step.  The fit differentiates only the plain small-n Gram; no kernel runs
-under autograd.  Nothing in the step loop reads a value on the host.
+step; nothing in its step loop reads a value on the host.  L-BFGS is
+optax 0.2.6's `lbfgs()` written out (`_lbfgs_loop`): the two-loop
+recursion over 10 pairs, then optax's zoom line search, under the
+reference's per-restart (`vmap`) semantics — each restart searches until
+its own search is done, a finished restart's state is frozen, and the
+trip loop ends when no restart still searches, which takes one
+device→host read a trip.  The fit differentiates only the plain small-n
+Gram; no kernel runs under autograd.  `fit_multi` fits T traits × R
+restarts as one flat batch of T·R restarts.
 
 The episode's refits (`fit_step`, `fit_step_warm`) draw their restart
 inits from `step_inits`: a `torch.Generator` seeded from (episode seed,
@@ -21,8 +28,6 @@ The posterior (`posterior`, `predict`, the row-append growth
 `posterior_extend` and the fused pairs) serves the episode's metrics;
 `predict` builds its cross-covariance with the Gram kernel of `ops.gram`
 (the plain version for CPU tensors).
-
-Not ported yet: L-BFGS and `fit_multi`; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -42,6 +47,16 @@ from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
 _LOG2PI = 1.8378770664093453
 
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+# optax.lbfgs()'s defaults: scale_by_lbfgs(memory_size=10,
+# scale_init_precond=True), then scale_by_zoom_linesearch(20 steps,
+# initial_guess_strategy="one") with its defaults (tol 0, increase factor
+# 2, slope_rtol 1e-4, curv_rtol 0.9, approx_dec_rtol 1e-6,
+# stepsize_precision 1e-5, no maximal stepsize)
+_LBFGS_MEMORY = 10
+_LS_STEPS = 20
+_LS_INCREASE, _LS_SLOPE_RTOL, _LS_CURV_RTOL = 2.0, 1e-4, 0.9
+_LS_APPROX_DEC_RTOL, _LS_INTERVAL = 1e-6, 1e-5
 
 
 def effective_noise_var(
@@ -140,9 +155,7 @@ def _opt_loop(
     and the non-finite guard; `loss` maps batched params to one value per
     restart.  Returns (best_params, best_nll, trace (R, iters))."""
     if cfg.optimizer == "lbfgs":
-        raise NotImplementedError(
-            "L-BFGS fitting is not ported to algp_tpu_torch yet; see ROADMAP.md"
-        )
+        return _lbfgs_loop(cfg, loss, params0)
     if cfg.optimizer != "adam":
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     names = [f.name for f in dataclasses.fields(KernelParams)]
@@ -187,6 +200,239 @@ def _opt_loop(
     )
 
 
+
+def _flat(p: KernelParams) -> torch.Tensor:
+    """(R, P) batched params: the fields side by side."""
+    return torch.cat([p.log_ls_spatial, p.log_ls_feature,
+                      p.log_outputscale[:, None], p.log_noise[:, None]], dim=1)
+
+
+def _unflat(x: torch.Tensor, like: KernelParams) -> KernelParams:
+    ds, df = like.log_ls_spatial.shape[-1], like.log_ls_feature.shape[-1]
+    return KernelParams(log_ls_spatial=x[:, :ds], log_ls_feature=x[:, ds:ds + df],
+                        log_outputscale=x[:, ds + df], log_noise=x[:, ds + df + 1])
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def _cubicmin(a, fa, fpa, b, fb, c, fc):
+    """optax's cubic interpolation: the critical point of the cubic through
+    (a, fa), (b, fb), (c, fc) with slope fpa at a (NaN if none)."""
+    C = fpa
+    db = b - a
+    dc = c - a
+    denom = (db * dc) * (db * dc) * (db - dc)
+    r0 = fb - fa - C * db
+    r1 = fc - fa - C * dc
+    A = (dc * dc * r0 + -(db * db) * r1) / denom
+    B = (-(dc * dc * dc) * r0 + db * db * db * r1) / denom
+    radical = B * B - 3.0 * A * C
+    return a + (-B + torch.sqrt(radical)) / (3.0 * A)
+
+
+def _quadmin(a, fa, fpa, b, fb):
+    """optax's quadratic interpolation through (a, fa), (b, fb), slope fpa."""
+    db = b - a
+    B = (fb - fa - fpa * db) / (db * db)
+    return a - fpa / (2.0 * B)
+
+
+def _decrease_error(stepsize, value, slope, value_init, slope_init):
+    """Armijo, or Hager-Zhang's approximate decrease near a minimum; 0
+    where satisfied, inf for NaN (optax's `_compute_decrease_error`)."""
+    err = value - value_init - _LS_SLOPE_RTOL * stepsize * slope_init
+    approx = slope - (2 * _LS_SLOPE_RTOL - 1.0) * slope_init
+    delta = value - value_init - _LS_APPROX_DEC_RTOL * torch.abs(value_init)
+    err = torch.clamp_min(torch.minimum(torch.maximum(approx, delta), err), 0.0)
+    return torch.where(torch.isnan(err), torch.inf, err)
+
+
+def _curvature_error(slope, slope_init):
+    err = torch.clamp_min(torch.abs(slope) - _LS_CURV_RTOL * torch.abs(slope_init), 0.0)
+    return torch.where(torch.isnan(err), torch.inf, err)
+
+
+def _select(mask: torch.Tensor, a: dict, b: dict) -> dict:
+    """Per restart: the entries of `a` where `mask`, else `b`'s."""
+    return {k: torch.where(_bcast(mask, a[k]), a[k], b[k]) for k in a}
+
+
+def _zoom_linesearch(vg, x, u, value, grad):
+    """optax 0.2.6's `zoom_linesearch` (Nocedal-Wright 3.5 / 3.6) along the
+    directions `u` (R, P) from `x`, one search per restart: a trip
+    evaluates each restart at its own trial stepsize (the interval search's
+    or the zoom's, as `interval_found` says), and a restart that is done
+    or failed keeps its state.  Returns (stepsize, value, grad) at the end
+    of each restart's search."""
+    R = x.shape[0]
+    dev = x.device
+    zero = torch.zeros(R, device=dev)
+    slope = _vdot(u, grad)
+    st = dict(
+        count=torch.zeros(R, dtype=torch.int64, device=dev),
+        stepsize=zero, value=value, grad=grad, slope=slope,
+        decrease_error=torch.full((R,), torch.inf, device=dev),
+        interval_found=torch.zeros(R, dtype=torch.bool, device=dev),
+        done=torch.zeros(R, dtype=torch.bool, device=dev),
+        failed=torch.zeros(R, dtype=torch.bool, device=dev),
+        low=zero, value_low=value, slope_low=slope,
+        high=zero, value_high=value, slope_high=slope,
+        cubic_ref=zero, value_cubic_ref=value,
+        safe_stepsize=zero, safe_value=value, safe_grad=grad,
+    )
+    value_init, slope_init = value, slope
+    while True:
+        active = ~(st["done"] | st["failed"])
+        if not bool(active.any()):  # the trip's one device→host read
+            break
+        c = st["count"]
+        low, high = st["low"], st["high"]
+        # the zoom's trial point: cubic, else quadratic, else bisection
+        delta = torch.abs(high - low)
+        left, right = torch.minimum(high, low), torch.maximum(high, low)
+        mc = _cubicmin(low, st["value_low"], st["slope_low"], high, st["value_high"],
+                       st["cubic_ref"], st["value_cubic_ref"])
+        use_cubic = (mc > left + 0.2 * delta) & (mc < right - 0.2 * delta)
+        mq = _quadmin(low, st["value_low"], st["slope_low"], high, st["value_high"])
+        use_quad = ~use_cubic & (mq > left + 0.1 * delta) & (mq < right - 0.1 * delta)
+        middle = torch.where(use_cubic, mc, st["cubic_ref"])
+        middle = torch.where(use_quad, mq, middle)
+        middle = torch.where(~use_cubic & ~use_quad, (low + high) / 2.0, middle)
+        # the interval search's: the guess 1, then twice the last stepsize
+        grown = torch.where(c == 0, torch.ones_like(zero), _LS_INCREASE * st["stepsize"])
+        zoom = st["interval_found"]
+        trial = torch.where(zoom, middle, grown)
+        v_t, g_t = vg(x + _bcast(trial, x) * u)
+        s_t = _vdot(g_t, u)
+        dec = _decrease_error(trial, v_t, s_t, value_init, slope_init)
+        err = torch.maximum(dec, _curvature_error(s_t, slope_init))
+        done = err <= 0.0
+        point = dict(stepsize=trial, value=v_t, grad=g_t, slope=s_t)
+        new = dict(st, count=c + 1, decrease_error=dec, done=done, **point)
+
+        # interval search (algorithm 3.5)
+        prev = dict(stepsize=st["stepsize"], value=st["value"], slope=st["slope"])
+        hi_new = (dec > 0.0) | ((v_t >= prev["value"]) & (c > 0))
+        lo_new = (s_t >= 0.0) & ~hi_new
+        bounds = _select(
+            lo_new,
+            dict(low=trial, value_low=v_t, slope_low=s_t,
+                 high=prev["stepsize"], value_high=prev["value"], slope_high=prev["slope"]),
+            dict(low=prev["stepsize"], value_low=prev["value"], slope_low=prev["slope"],
+                 high=trial, value_high=v_t, slope_high=s_t))
+        search = dict(
+            new, **bounds, cubic_ref=bounds["low"], value_cubic_ref=bounds["value_low"],
+            interval_found=hi_new | lo_new | done,
+            failed=(c + 1 >= _LS_STEPS) & ~done,
+            **_select(dec <= 0.0,
+                      dict(safe_stepsize=trial, safe_value=v_t, safe_grad=g_t),
+                      dict(safe_stepsize=st["safe_stepsize"], safe_value=st["safe_value"],
+                           safe_grad=st["safe_grad"])))
+
+        # zoom (algorithm 3.6)
+        safe = _select((dec <= 0.0) & (v_t < st["safe_value"]),
+                       dict(safe_stepsize=trial, safe_value=v_t, safe_grad=g_t),
+                       dict(safe_stepsize=st["safe_stepsize"], safe_value=st["safe_value"],
+                            safe_grad=st["safe_grad"]))
+        hi_mid = (dec > 0.0) | (v_t >= st["value_low"])
+        hi_low = (s_t * (high - low) >= 0.0) & ~hi_mid
+        cur_hi = dict(high=high, value_high=st["value_high"], slope_high=st["slope_high"])
+        hi = _select(hi_mid, dict(high=trial, value_high=v_t, slope_high=s_t), cur_hi)
+        hi = _select(hi_low, dict(high=low, value_high=st["value_low"],
+                                  slope_high=st["slope_low"]), hi)
+        lo = _select(~hi_mid, dict(low=trial, value_low=v_t, slope_low=s_t),
+                     dict(low=low, value_low=st["value_low"], slope_low=st["slope_low"]))
+        ref = _select(hi_mid | hi_low,
+                      dict(cubic_ref=high, value_cubic_ref=st["value_high"]),
+                      dict(cubic_ref=low, value_cubic_ref=st["value_low"]))
+        gave_up = (c + 1 >= _LS_STEPS) | ((delta <= _LS_INTERVAL)
+                                           & (safe["safe_stepsize"] > 0.0))
+        zoomed = dict(new, **hi, **lo, **ref, **safe, failed=gave_up & ~done)
+
+        new = _select(zoom, zoomed, search)
+        # a failed search falls back to its best point of sufficient
+        # decrease, if it has one (optax's `_try_safe_step`)
+        fallback = new["failed"] & ((new["safe_stepsize"] > 0.0)
+                                    | torch.isinf(new["decrease_error"]))
+        new.update(_select(
+            fallback,
+            dict(stepsize=new["safe_stepsize"], value=new["safe_value"],
+                 grad=new["safe_grad"]),
+            dict(stepsize=new["stepsize"], value=new["value"], grad=new["grad"])))
+        st = _select(active, new, st)
+    return st["stepsize"], st["value"], st["grad"]
+
+
+def _lbfgs_loop(cfg: FitConfig, loss, params0: KernelParams):
+    """`_opt_loop` under optax.lbfgs(): each step preconditions the
+    gradient by the two-loop recursion over the last 10 (Δparams, Δgrad)
+    pairs (γ = capped 1/‖g‖ at the first step, then ΔgᵀΔp / ‖Δg‖²), runs
+    the zoom line search along the negated direction and moves by the
+    stepsize it found.  The value and gradient the search ends at are the
+    next step's (optax's `value_and_grad_from_state`)."""
+    m = _LBFGS_MEMORY
+
+    def vg(x):
+        x = x.detach().requires_grad_(True)
+        v = loss(_unflat(x, params0))
+        g, = torch.autograd.grad(v.sum(), x, allow_unused=True)
+        return v.detach(), (torch.zeros_like(x) if g is None else g)
+
+    x = _flat(params0).detach().clone()
+    R, P = x.shape
+    value, grad = vg(x)
+    dw = x.new_zeros((m, R, P))
+    du = x.new_zeros((m, R, P))
+    rho = x.new_zeros((m, R))
+    prev_x, prev_g = torch.zeros_like(x), torch.zeros_like(x)
+    best_nll = torch.full((R,), torch.inf, device=x.device)
+    best_x = x.clone()
+    trace = []
+    for k in range(cfg.iters):
+        nll, g = value, grad
+        trace.append(nll)
+        better = nll < best_nll
+        best_nll = torch.where(better, nll, best_nll)
+        best_x = torch.where(better[:, None], x, best_x)
+
+        # scale_by_lbfgs: store the newest pair, then P_k g
+        if k > 0:
+            d_x, d_g = x - prev_x, g - prev_g
+            dot = _vdot(d_g, d_x)
+            w = torch.where(dot == 0.0, 0.0, 1.0 / dot)
+            sq = _vdot(d_g, d_g)
+            gamma = torch.where(sq > 0.0, dot / sq, 1.0)
+        else:
+            d_x, d_g, w = torch.zeros_like(x), torch.zeros_like(x), x.new_zeros(R)
+            gamma = torch.clamp_max(1.0 / torch.sqrt(_vdot(g, g)), 1.0)
+        slot = (k - 1) % m
+        dw[slot], du[slot], rho[slot] = d_x, d_g, w
+        order = [(k % m + j) % m for j in range(m)]
+        vec, alphas = g, {}
+        for i in reversed(order):
+            alphas[i] = rho[i] * _vdot(dw[i], vec)
+            vec = vec + (-alphas[i])[:, None] * du[i]
+        vec = gamma[:, None] * vec
+        for i in order:
+            beta = rho[i] * _vdot(du[i], vec)
+            vec = vec + (alphas[i] - beta)[:, None] * dw[i]
+        prev_x, prev_g = x, g
+
+        u = -1.0 * vec
+        step, value, grad = _zoom_linesearch(vg, x, u, nll, g)
+        x = x + step[:, None] * u
+
+    with torch.no_grad():
+        nll_fin = loss(_unflat(x, params0))
+        better = nll_fin < best_nll
+        best_nll = torch.where(better, nll_fin, best_nll)
+        best_x = torch.where(better[:, None], x, best_x)
+        best_nll = torch.where(torch.isfinite(best_nll), best_nll, torch.inf)
+    return _unflat(best_x, params0).map(torch.clone), best_nll, torch.stack(trace, dim=-1)
+
+
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape(*mask.shape, *([1] * (like.dim() - mask.dim())))
 
@@ -194,6 +440,21 @@ def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def _take(p: KernelParams, k: torch.Tensor) -> KernelParams:
     """Restart k of batched params, k a device index (no host sync)."""
     return p.map(lambda a: a.index_select(0, k.reshape(1))[0])
+
+
+def _mll_loss(spec, cfg: FitConfig, x, y, noise_scale, num_valid=None):
+    """The fit's objective: batched params → −MLL per batch element, with
+    the noise frozen unless `cfg.learn_noise`."""
+
+    def loss(p: KernelParams) -> torch.Tensor:
+        if not cfg.learn_noise:
+            p = dataclasses.replace(p, log_noise=p.log_noise.detach())
+        return neg_mll(
+            spec, p, x, y, noise_scale, min_noise=cfg.min_noise,
+            jitter=cfg.jitter, num_valid=num_valid,
+        )
+
+    return loss
 
 
 def _fit_batched(
@@ -207,15 +468,7 @@ def _fit_batched(
 ) -> FitResult:
     """All restarts of `inits` (leading axis) at once, then the winner
     (the counterpart of algp_tpu.models.gp._fit_jit)."""
-
-    def loss(p: KernelParams) -> torch.Tensor:
-        if not cfg.learn_noise:
-            p = dataclasses.replace(p, log_noise=p.log_noise.detach())
-        return neg_mll(
-            spec, p, x, y, noise_scale, min_noise=cfg.min_noise,
-            jitter=cfg.jitter, num_valid=num_valid,
-        )
-
+    loss = _mll_loss(spec, cfg, x, y, noise_scale, num_valid)
     best_p, best_nll, trace = _opt_loop(cfg, loss, inits)
     k = torch.argmin(best_nll)  # lowest index wins ties (oracle contract)
     return FitResult(
@@ -273,6 +526,45 @@ def fit(
     if inits is None:
         inits = make_restart_inits(spec, cfg, generator, device=x.device)
     return _fit_batched(spec, cfg, x, y, noise_scale, inits, num_valid)
+
+
+def fit_multi(
+    spec: KernelSpec,
+    cfg: FitConfig,
+    x: torch.Tensor,
+    Y: torch.Tensor,
+    noise_scale: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    inits: Optional[KernelParams] = None,
+) -> FitResult:
+    """Independent GPs for the T traits (columns of Y (n, T)) of the same
+    plots, every trait from the same restart inits: T·R restarts in one
+    batch, so each step runs one batched Cholesky over all of them.
+    Returns a FitResult whose fields carry a leading trait axis
+    (`trait_result` takes one trait's)."""
+    if inits is None:
+        inits = make_restart_inits(spec, cfg, generator, device=x.device)
+    T, R = Y.shape[1], inits.log_outputscale.shape[0]
+    batch = inits.map(lambda a: a.repeat(T, *([1] * (a.dim() - 1))))
+    loss = _mll_loss(spec, cfg, x, Y.T.repeat_interleave(R, dim=0), noise_scale)
+    best_p, best_nll, trace = _opt_loop(cfg, loss, batch)
+    best_nll = best_nll.reshape(T, R)
+    k = torch.argmin(best_nll, dim=1)  # lowest index wins ties
+    rows = torch.arange(T, device=k.device) * R + k
+    return FitResult(
+        params=best_p.map(lambda a: a.index_select(0, rows)),
+        nll=best_nll.gather(1, k[:, None])[:, 0],
+        all_nlls=best_nll,
+        nll_trace=trace.reshape(T, R, -1),
+        best_restart=k,
+    )
+
+
+def trait_result(res: FitResult, t: int) -> FitResult:
+    """Trait t's FitResult from a `fit_multi` batch."""
+    return FitResult(params=res.params.map(lambda a: a[t]), nll=res.nll[t],
+                     all_nlls=res.all_nlls[t], nll_trace=res.nll_trace[t],
+                     best_restart=res.best_restart[t])
 
 
 # ---------------------------------------------------------------------------

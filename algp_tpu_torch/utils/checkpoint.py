@@ -39,7 +39,9 @@ class EpisodeState:
     goal_i: int = 0  # next EpisodeConfig.waypoint_goals entry to visit
     # EpisodeConfig.lagged_refit: a refit result not yet consumed by a plan
     pending_params: Optional[KernelParams] = None
-    y_traits: Optional[np.ndarray] = None  # multi-trait (not ported; None)
+    # multi-trait envs: (n, T) all-trait rows of the sampled set, NaN where
+    # a visit did not measure a trait; column 0 is `y`
+    y_traits: Optional[np.ndarray] = None
 
 
 def _params_blobs(prefix: str, p: KernelParams) -> dict:
@@ -58,10 +60,10 @@ def _params_from(z, prefix: str, device) -> Optional[KernelParams]:
 
 
 def save(path: str, state: EpisodeState) -> None:
-    if state.mlp is not None or state.y_traits is not None:
+    if state.mlp is not None:
         raise NotImplementedError(
-            "checkpoints of deep-kernel or multi-trait episodes are not "
-            "ported to algp_tpu_torch yet; see ROADMAP.md"
+            "checkpoints of deep-kernel episodes are not ported to "
+            "algp_tpu_torch yet; see ROADMAP.md"
         )
     blobs = {
         "sampled_idx": state.sampled_idx,
@@ -72,6 +74,8 @@ def save(path: str, state: EpisodeState) -> None:
         "step": np.asarray(state.step),
         "goal_i": np.asarray(state.goal_i),
     }
+    if state.y_traits is not None:
+        blobs["y_traits"] = state.y_traits
     if state.params is not None:
         blobs.update(_params_blobs("p", state.params))
     if state.pending_params is not None:
@@ -86,10 +90,10 @@ def save(path: str, state: EpisodeState) -> None:
 def load(path: str, device=None) -> EpisodeState:
     device = resolve_device(device)
     with np.load(path) as z:
-        if "mlp_layers" in z.files or "y_traits" in z.files:
+        if "mlp_layers" in z.files:
             raise NotImplementedError(
-                "checkpoints of deep-kernel or multi-trait episodes are not "
-                "ported to algp_tpu_torch yet; see ROADMAP.md"
+                "checkpoints of deep-kernel episodes are not ported to "
+                "algp_tpu_torch yet; see ROADMAP.md"
             )
         rng_state = None
         if "rng_state_json" in z.files:
@@ -105,4 +109,5 @@ def load(path: str, device=None) -> EpisodeState:
             rng_state=rng_state,
             goal_i=int(z["goal_i"]) if "goal_i" in z.files else 0,
             pending_params=_params_from(z, "q", device),
+            y_traits=z["y_traits"] if "y_traits" in z.files else None,
         )

@@ -20,7 +20,12 @@ script exits non-zero and never prints the final line:
                 path's 10 240², Matérn 3/2 at the low-rank seed's
                 1 024 × 102 400, the million-point seeds' 512 × 1 048 576
                 and 512 × 4 194 304 (2³¹ outputs), and the conditioning
-                pass's 352 × 1 048 576, 640 × 1 048 576 and 224 × 4 194 304
+                pass's 352 × 1 048 576, 640 × 1 048 576 and 224 × 4 194 304;
+                and the composite template (Matérn 5/2 × RBF) within
+                2e-6·s² and timed in turns against the plain version at
+                the feature paths' shapes: 1 000² at d = 2 + 3 (c2, c10),
+                1 000² at d = 2 + 1 (the warped truth), 10 240² at d = 2 + 3
+                (phase 12d's seed)
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
                 and a ragged N; bitwise repeatability; times per call
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
@@ -68,6 +73,22 @@ script exits non-zero and never prints the final line:
                 monolithic seed pick the same path; their largest LB
                 difference is printed), c5_1m_long refits by SGPR and
                 keeps its capacity of 640
+ 12a-12c. episode_c2, episode_c2_lbfgs, episode_c2_warp — the preset
+                `c2_composite_restarts` (25 × 40 field with 3 features,
+                Matérn 5/2 × RBF, 4 restarts) through the CLI once each: Adam,
+                `--optimizer lbfgs --iters 40`, `--feature-warp tanh`; phase
+                9's checks, the fits' seconds
+ 12d. greedy_c2 — `c2_composite_restarts --rows 100 --cols 100 --mode greedy
+                --acq-rounds 50` through `cli.run_greedy`: the composite Gram at
+                10 000², the exact MI seed, 50 rounds on the wtw kernel; the
+                50 selections equal the f64 oracle's (tests/oracle.py) on the
+                fitted params
+ 13a-13c. episode_table, episode_table_traits, episode_traits_10k — `c10_table`,
+                `c10_table --value-cols height,width,stand_count` and `c5_10k
+                --num-traits 3 --trait-corr 0.5 --trait-obs-frac 0.5` through
+                the CLI once each, with phase 9's checks; for the trait runs
+                every trait's RMSE finite, trait 0's scored as the headline
+                RMSE is scored, and the end-of-episode trait fits' seconds
  10. chol     — the Cholesky kernel vs its plain version (cuSOLVER) and an
                 f64 factor at n = 997 (ragged), the episode's 10 000 seed
                 and the main path's 10 240 seed: residuals, errors, NaN on
@@ -82,8 +103,8 @@ script exits non-zero and never prints the final line:
                 the card's bound
 Each path (main, episode, lowrank_main, episode_100k, episode_long,
 lowrank_1m, episode_1m, episode_4m, episode_4m_ens, episode_1m_long, the
-Cholesky seed path) runs with the kernel counts set to 0 just before it
-and read just after.  The line before the kernels line gives the
+phases 12a-13c, the Cholesky seed path) runs with the kernel counts set to
+0 just before it and read just after.  The line before the kernels line gives the
 script's total seconds.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -125,6 +146,28 @@ EPISODE_1M_ARGS = ["--preset", "c5_1m"]
 EPISODE_4M_ARGS = ["--preset", "c5_4m"]
 EPISODE_4M_ENS_ARGS = ["--preset", "c5_4m", "--mi-ensemble", "4"]
 EPISODE_1M_LONG_ARGS = ["--preset", "c5_1m_long"]
+# the feature and trait paths (phases 12a-13c): (tag, command line)
+C2_ARGS = ["--preset", "c2_composite_restarts"]
+FIELD_EPISODES = (
+    ("episode_c2", C2_ARGS),
+    # depth cut, 150 → 40 L-BFGS steps a refit: past convergence every
+    # restart batch's line search runs its 20 trips, one loss evaluation
+    # each, and the preset's 150 steps take ≈ 16 s a refit on the card
+    ("episode_c2_lbfgs", C2_ARGS + ["--optimizer", "lbfgs", "--iters", "40"]),
+    ("episode_c2_warp", C2_ARGS + ["--feature-warp", "tanh"]),
+)
+GREEDY_C2_ARGS = C2_ARGS + ["--rows", "100", "--cols", "100", "--mode", "greedy",
+                            "--acq-rounds", "50"]
+TRAIT_EPISODES = (
+    ("episode_table", ["--preset", "c10_table"]),
+    ("episode_table_traits", ["--preset", "c10_table", "--value-cols",
+                              "height,width,stand_count"]),
+    ("episode_traits_10k", ["--preset", "c5_10k", "--num-traits", "3",
+                            "--trait-corr", "0.5", "--trait-obs-frac", "0.5"]),
+)
+# the composite Gram (Matérn 5/2 × RBF) at the feature paths' shapes:
+# (side of the square, rows × cols of the grid, feature width)
+COMPOSITE_GRAM_CASES = ((1000, (25, 40), 3), (1000, (25, 40), 1), (10240, (100, 100), 3))
 # the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and FP32 flop/s outside the tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -207,12 +250,18 @@ def phase_build():
          ptxas=ptxas)
     # instructions of the innermost storing loop over the outputs one trip
     # writes; the shared-tile design's stores are straight-line code (None)
-    sass = tool.sass_per_output(_cuda.build(), tool.KERNEL_PATTERNS)
+    sass = tool.sass_per_output(_cuda.build(), {**tool.KERNEL_PATTERNS,
+                                                **COMPOSITE_SASS_PATTERN})
     sass.update(tool.sass_per_output(variants, {
         "shared_tile_matern32": "shared_tile_kernelILi1E", "shared_tile_rbf": "shared_tile_kernelILi0E"}))
     emit("gram_sass", per_output={k: v and v.get("per_output") for k, v in sass.items()},
          loops=sass)
     return tool, tool.load(variants)
+
+
+# gram_kernel<SK = Matérn 5/2, FK = RBF, DS = 0 (read at run time), VEC>:
+# its hot loop holds the two runtime coordinate loops, each counted once
+COMPOSITE_SASS_PATTERN = {"composite_matern52_rbf": "gram_kernelILi2ELi0ELi0ELb1E"}
 
 
 def main_grid(dev):
@@ -243,13 +292,15 @@ def phase_gram(dev, tool, variants) -> dict:
     bitwise = ("rbf", "matern32")
     results, worst = [], 0.0
 
-    def check(spec, x1, x2):
+    def check(spec, x1, x2, params=None):
+        """Kernel against plain at `params` (default: the phase's `p`)."""
         nonlocal worst
-        K = G.gram_kernel(spec, p, x1, x2)
-        P = G.gram_reference(spec, p, x1, x2)
+        q = p if params is None else params
+        K = G.gram_kernel(spec, q, x1, x2)
+        P = G.gram_reference(spec, q, x1, x2)
         err = float((K - P).abs().max())
         exact = spec.spatial_kind in bitwise and not spec.df
-        if not (torch.equal(K, P) if exact else err <= 2e-6 * 1.7):
+        if not (torch.equal(K, P) if exact else err <= 2e-6 * float(q.outputscale)):
             raise AssertionError(f"gram kernel vs plain at {tuple(K.shape)} ({spec}): "
                                  f"{err}{' (not bitwise)' if exact else ''}")
         worst = max(worst, err)
@@ -323,13 +374,60 @@ def phase_gram(dev, tool, variants) -> dict:
             torch.cuda.empty_cache()
         del xg
     torch.cuda.empty_cache()
+    composite = composite_gram_cases(dev, check, results)
     emit("gram", cases=results, tol="bitwise for rbf and matern32; 2e-6*s2 otherwise",
          **{k: main[k] for k in ("ms", "shared_tile_ms", "plain_ms", "bound_ms")})
     keys = ("ms", "shared_tile_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     return {"max_abs_err": worst, "ms": main["ms"], "shared_tile_ms": main["shared_tile_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
-            **{k: {q: v[q] for q in keys} for k, v in at.items()}}
+            **{k: {q: v[q] for q in keys} for k, v in at.items()}, **composite}
+
+
+def composite_gram_cases(dev, check, results) -> dict:
+    """The composite template (Matérn 5/2 × RBF) at the feature paths'
+    shapes: [grid | N(0, 1) features] against itself (the truth's Gram),
+    the 10 240 case the 100 × 100 grid padded as `pad_candidates` pads it
+    (the MI seed's).  Held within
+    2e-6·s² of the plain version by `check`, then kernel and plain timed in
+    turns (kernel, plain, plain, kernel)."""
+    from algp_tpu_torch.acquisition import pad_candidates
+    from algp_tpu_torch.ops import gram as G
+    from algp_tpu_torch.ops.kernels import KernelSpec
+
+    rng = np.random.default_rng(12)
+    out = {}
+    for n, (rows, cols), df in COMPOSITE_GRAM_CASES:
+        spec = KernelSpec("matern52", "rbf", ds=2, df=df)
+        p = spec.init_params(ls_spatial=4.0, ls_feature=1.0, outputscale=1.0, device=dev)
+        r, c = np.divmod(np.arange(rows * cols), cols)
+        x = np.concatenate([np.stack([c, r], 1), rng.standard_normal((rows * cols, df))], 1)
+        x = torch.tensor(x, dtype=torch.float32, device=dev)
+        if n != rows * cols:
+            x, _ = pad_candidates(x, torch.ones(rows * cols, device=dev))
+        if x.shape[0] != n:
+            raise AssertionError(f"composite case: {x.shape[0]} points, not {n}")
+        case = check(spec, x, x, p)
+        runs = {"ms": lambda: G.gram_kernel(spec, p, x, x),
+                "plain_ms": lambda: G.gram_reference(spec, p, x, x)}
+        turns = {k: [] for k in runs}
+        for k in ("ms", "plain_ms", "plain_ms", "ms"):
+            turns[k].append(cuda_ms(runs[k], 20 if k == "ms" else 3))
+        case.update({k: float(np.mean(v)) for k, v in turns.items()})
+        # each output written once, inputs read once; per output 3 operations
+        # a coordinate (difference, square, sum), the Matérn 5/2 form (clamp,
+        # square root, √5·r, a², ÷3, two adds, the exp, the product: 9), the
+        # RBF form (a multiply and the exp), the product of the two and the
+        # scale
+        case["bound_ms"], case["bound_by"] = bound(
+            4 * (n * n + 2 * spec.dim * n), n * n * (3 * spec.dim + 9 + 2 + 2))
+        case["share_of_bound"] = case["bound_ms"] / case["ms"]
+        results.append(case)
+        out[f"composite_{n}x{n}_d{spec.dim}"] = {
+            q: case[q] for q in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_wtw(dev) -> dict:
@@ -508,6 +606,7 @@ def phase_main(dev, oracle, card: str) -> dict:
          launches=launches, per_episode_launches=per_episode[0],
          first_selected=sel[:10].tolist(), card=card)
     return {"env": env, "x_pilot": x_pilot, "y_pilot": y_pilot,
+            "median_ms": float(np.median(times)),
             "pilot_j": pilot_j, "launches": launches, "params": p,
             "episode": episode, "selected": sel, "min_noise": fitcfg.min_noise}
 
@@ -595,21 +694,24 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
     plan saw at that step (`agent`, `plan_state`).  The timed run also
     records, from host-side counts only, each k-center chain's size, each
     small-factor seed's Gram launches (its chunks) and the FITC truth's
-    time (synchronised: it runs before the first plan) and launches."""
+    time (synchronised: it runs before the first plan) and launches, and
+    the end-of-episode trait fits' env, mean fields, RMSEs and seconds."""
     from algp_tpu_torch import acquisition_lowrank as acq_lr
     from algp_tpu_torch import cli, episode
     from algp_tpu_torch import field as field_mod
-    from algp_tpu_torch.models import sparse_gp
+    from algp_tpu_torch.models import multifit, sparse_gp
     from algp_tpu_torch.ops import gram as G
     from algp_tpu_torch.utils import checkpoint as ckpt
 
     OUT.mkdir(parents=True, exist_ok=True)
     syncs: list[int] = []
+    sync_sites: list[list] = []  # file:line of each plan call's syncs
     plan_grams: list[int] = []  # Gram kernel launches of each plan call
     sparse_refits: list[int] = []
     captured: dict = {}
-    probes: dict = {"kcenter": [], "seed_chunks": [], "truth": []}
+    probes: dict = {"kcenter": [], "seed_chunks": [], "truth": [], "traits": []}
     orig = episode.Agent._plan_and_metrics
+    orig_traits, orig_fields = episode.Agent._trait_posteriors, multifit.multitrait_mean_fields
     orig_sparse = {k: getattr(sparse_gp, k)
                    for k in ("fit_step_sparse", "fit_step_sparse_warm")}
     orig_kc, orig_seed = acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed
@@ -634,6 +736,18 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
                                 "gram_chunks": G.LAUNCHES - g0})
         return out
 
+    def fields(*a, **k):
+        M = orig_fields(*a, **k)
+        probes["traits"].append({"M": M})
+        return M
+
+    def traits(self, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_traits(self, st)
+        probes["traits"][-1].update(env=self.env, rmse=out, s=time.perf_counter() - t0)
+        return out
+
     def counted(self, st):
         if capture_step is not None and st.step == capture_step and not captured:
             captured.update(agent=self, plan_state=dataclasses.replace(st))
@@ -645,7 +759,9 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
                 return orig(self, st)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-                syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+                hits = [w for w in caught if "synchroniz" in str(w.message)]
+                syncs.append(len(hits))
+                sync_sites.append([f"{Path(w.filename).name}:{w.lineno}" for w in hits])
                 plan_grams.append(G.LAUNCHES - g0)
 
     def sparse_counted(name):
@@ -672,6 +788,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
         setattr(sparse_gp, k, sparse_counted(k))
     acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = kcenter, seed
     field_mod.FieldEnv._synthesize_lowrank = truth
+    episode.Agent._trait_posteriors, multifit.multitrait_mean_fields = traits, fields
     try:
         warm_s = None
         if warm:
@@ -679,6 +796,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
             run("warm")
             warm_s = time.perf_counter() - t0
         syncs.clear()
+        sync_sites.clear()
         plan_grams.clear()
         sparse_refits.clear()
         for v in probes.values():
@@ -698,7 +816,10 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
             setattr(sparse_gp, k, fn)
         acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = orig_kc, orig_seed
         field_mod.FieldEnv._synthesize_lowrank = orig_truth
+        episode.Agent._trait_posteriors = orig_traits
+        multifit.multitrait_mean_fields = orig_fields
     return dict(summary=summary, history=history, state=st, syncs=list(syncs),
+                sync_sites=list(sync_sites),
                 plan_grams=list(plan_grams),
                 launches=launches, wall_s=wall_s, warm_s=warm_s, peak=peak,
                 sparse_refits=len(sparse_refits), probes=probes, **captured)
@@ -733,7 +854,8 @@ def check_episode(run: dict, args: list, workload: str, card: str) -> dict:
     if st.sampled_idx.min() < 0 or st.sampled_idx.max() >= n:
         raise AssertionError("a sampled index lies outside the grid")
     if len(syncs) != len(plans) + 1 or max(syncs) > 1:
-        raise AssertionError(f"device→host syncs per planning step: {syncs}")
+        raise AssertionError(f"device→host syncs per planning step: {syncs}, at "
+                             f"{run['sync_sites']}")
     # the seeds' factors are the library's: no Cholesky kernel launch
     if launches["gram"] < 1 or launches["cholesky"] != 0:
         raise AssertionError(f"episode launches: {launches}")
@@ -1206,6 +1328,120 @@ def phase_episode_1m_long(dev, card: str) -> dict:
         "samples, device metrics", checks)
 
 
+def phase_field_episode(dev, card: str, tag: str, args: list) -> dict:
+    """A feature or trait preset through the CLI, once, with phase 9's
+    checks and the fits' seconds (refit steps' `fit_s`).  On a multi-trait
+    field also: one end-of-episode trait evaluation, every trait's RMSE
+    finite, and trait 0's RMSE scored as the headline RMSE is scored
+    (`env.rmse` of trait 0's mean field); the headline (the last refit's
+    posterior) and trait 0's fit (every sample, its own inits) are
+    reported side by side."""
+    from algp_tpu_torch import cli
+
+    run = run_episodes(dev, args, tag, warm=False)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(args))
+    out = check_episode(run, args, f"{tag} via algp_tpu_torch.cli.main {' '.join(args)}",
+                        card)
+    fits = [h["fit_s"] for h in run["history"] if h["phase"] == "plan"
+            and h["step"] % cfg.episode.refit_every == 0]
+    out.update(fit_s_median=float(np.median(fits)), fit_s_total=float(np.sum(fits)),
+               optimizer=cfg.fit.optimizer, features=cfg.kernel.df)
+    pr = run["probes"]["traits"]
+    T = run["state"].y_traits.shape[1] if run["state"].y_traits is not None else 1
+    if T > 1:
+        if len(pr) != 1:
+            raise AssertionError(f"{tag}: {len(pr)} trait evaluations")
+        env, (tr, trt), M = pr[0]["env"], pr[0]["rmse"], pr[0]["M"]
+        if len(tr) != T or not np.isfinite(tr + trt).all():
+            raise AssertionError(f"{tag}: trait RMSE {tr}, held-out {trt}")
+        if (env.rmse(M[:, 0]), env.rmse(M[:, 0], test_only=True)) != (tr[0], trt[0]):
+            raise AssertionError(f"{tag}: trait 0 scored apart from the headline RMSE")
+        out.update(traits=T, trait_rmse=tr, trait_rmse_test=trt,
+                   trait_fit_s=pr[0]["s"],
+                   trait_path="batched fit_multi" if not np.isnan(
+                       run["state"].y_traits).any() else "per-trait (visits skipped traits)",
+                   headline_rmse_test=out["rmse_test_final"])
+    emit(tag, **out)
+    return {"launches": run["launches"], "fit_s_median": out["fit_s_median"]}
+
+
+def greedy_vs_oracle(dev, oracle, args: list) -> tuple:
+    """Greedy MI of `cli.run_greedy` (a field with features): its record,
+    the fitted params, nv and pilots it selected with, its selections,
+    and the f64 oracle's on the same inputs.  The Gram and wtw launches of
+    the run are counted; the oracle's work is host numpy."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch import cli
+
+    seen = {}
+    orig = acq.greedy_select
+
+    def spy(spec, params, X, nv, pilot, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(spec, params, X, nv, pilot, **kw)
+        sel = res.selected.cpu().numpy()
+        seen.update(spec=spec, params=params, X=X, nv=nv, pilot=pilot, selected=sel,
+                    select_ms=(time.perf_counter() - t0) * 1e3)
+        return res
+
+    acq.greedy_select = spy
+    try:
+        cfg = cli.config_from_args(cli.build_parser().parse_args(args))
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rec = cli.run_greedy(cfg, 1, dev)[0]
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        acq.greedy_select = orig
+    launches = _counts()
+    spec, p = seen["spec"], seen["params"]
+    x = seen["X"].cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    K = oracle.gram(x, x, spatial_kind=spec.spatial_kind, feature_kind=spec.feature_kind,
+                    ds=spec.ds,
+                    ls_spatial=np.exp(p.log_ls_spatial.cpu().numpy().astype(np.float64)),
+                    ls_feature=np.exp(p.log_ls_feature.cpu().numpy().astype(np.float64)),
+                    outputscale=float(torch.exp(p.log_outputscale)))
+    ref, _ = oracle.greedy_mi_selection(K, float(seen["nv"][0]), cfg.acquisition.rounds,
+                                        seen["pilot"].cpu().numpy())
+    return dict(rec=rec, selected=seen["selected"], oracle=ref, run_ms=run_ms,
+                select_ms=seen["select_ms"], launches=launches,
+                oracle_s=time.perf_counter() - t0)
+
+
+def phase_greedy_c2(dev, oracle, card: str, main_ms: float) -> dict:
+    """12d: c2_composite_restarts' greedy MI on the 100 × 100 field with 3
+    features (the composite Gram at 10 000², the exact seed, 50 rounds on
+    the wtw kernel), counted from 0; its selections against the f64
+    oracle."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    out = greedy_vs_oracle(dev, oracle, GREEDY_C2_ARGS)
+    sel, ref, rec, launches = out["selected"], out["oracle"], out["rec"], out["launches"]
+    if not np.isfinite([rec["final_rmse"], rec["final_rmse_test"]]).all():
+        raise AssertionError(f"greedy_c2: non-finite RMSE {rec}")
+    if launches["wtw_column"] != 50 or launches["gram"] < 3 or launches["cholesky"]:
+        raise AssertionError(f"greedy_c2 launches: {launches}")
+    if not np.array_equal(sel, ref):
+        first = int(np.flatnonzero(sel != ref)[0])
+        raise AssertionError(f"greedy_c2 selections differ from the f64 oracle from round "
+                             f"{first}: {sel[first:first + 5]} vs {ref[first:first + 5]}")
+    emit("greedy_c2", workload="c2_composite_restarts --rows 100 --cols 100 --mode greedy "
+         "--acq-rounds 50 via cli.run_greedy: 10 000 candidates, d = 2 + 3, Matern-5/2 x "
+         "RBF, 32 pilots, adam 4x150 twice, exact MI seed, 50 rounds",
+         run_ms=out["run_ms"], greedy_select_ms=out["select_ms"],
+         main_path_median_ms=main_ms, rmse_final=rec["final_rmse"],
+         rmse_test_final=rec["final_rmse_test"], launches=launches,
+         first_selected=sel[:10].tolist(),
+         fidelity=f"50/50 equal to the f64 oracle ({out['oracle_s']:.1f} s of host numpy)",
+         card=card)
+    return {"launches": launches}
+
+
 def phase_chol(dev, main_run, episode_run, card: str) -> dict:
     """The Cholesky kernel on the seed matrices of the paths.  The seed
     path — factor each seed with the kernel, then serve the main path's
@@ -1402,6 +1638,11 @@ def main() -> None:
     episode_4m = phase_episode_4m(dev, smi)
     episode_4m_ens = phase_episode_4m_ens(dev, smi, episode_4m)
     episode_1m_long = phase_episode_1m_long(dev, smi)
+    field_runs = {tag: phase_field_episode(dev, smi, tag, args)
+                  for tag, args in FIELD_EPISODES}
+    greedy_c2 = phase_greedy_c2(dev, oracle, smi, main_run["median_ms"])
+    field_runs.update({tag: phase_field_episode(dev, smi, tag, args)
+                       for tag, args in TRAIT_EPISODES})
     chol = phase_chol(dev, main_run, episode_run, smi)
     paths = {"main": main_run["launches"], "episode": episode_run["launches"],
              "lowrank_main": lowrank_run["launches"],
@@ -1412,6 +1653,8 @@ def main() -> None:
              "episode_4m": episode_4m["launches"],
              "episode_4m_ens": episode_4m_ens["launches"],
              "episode_1m_long": episode_1m_long["launches"],
+             **{tag: r["launches"] for tag, r in field_runs.items()},
+             "greedy_c2": greedy_c2["launches"],
              "chol_seed": chol.pop("launches")}
 
     def entry(name, source, replaces, stats):

@@ -230,6 +230,45 @@ def test_fit_and_select_on_card_equals_cpu(dev):
     np.testing.assert_array_equal(sel_g, sel_c)
 
 
+def test_fit_multi_on_card_matches_individual_fits(dev):
+    """The CUDA twin of test_hw_fidelity.py's fit_multi case: the T·R
+    restart batch on the card against T separate fits from the same inits,
+    NLL within 5e-4 and lengthscales within 2e-3."""
+    from algp_tpu_torch.config import FitConfig
+    from algp_tpu_torch.models import gp
+
+    rng = np.random.default_rng(17)
+    n, T = 90, 3
+    spec = KernelSpec("rbf", ds=2)
+    x = torch.tensor(rng.uniform(0, 10, (n, 2)), dtype=torch.float32, device=dev)
+    Y = torch.tensor(rng.standard_normal((n, T)), dtype=torch.float32, device=dev)
+    cfg = FitConfig(iters=40, restarts=2)
+    inits = gp.make_restart_inits(spec, cfg, torch.Generator(device=dev).manual_seed(5))
+    multi = gp.fit_multi(spec, cfg, x, Y, inits=inits)
+    assert torch.isfinite(multi.nll).all()
+    for t in range(T):
+        single = gp.fit(spec, cfg, x, Y[:, t], inits=inits)
+        rt = gp.trait_result(multi, t)
+        np.testing.assert_allclose(float(rt.nll), float(single.nll), rtol=5e-4, atol=5e-4)
+        np.testing.assert_allclose(rt.params.log_ls_spatial.cpu().numpy(),
+                                   single.params.log_ls_spatial.cpu().numpy(),
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_composite_greedy_selections_equal_f64_oracle(dev):
+    """chip_smoke.py phase 12d at a small size: c2_composite_restarts'
+    greedy MI (Matérn 5/2 × RBF over [pose | 3 features], fitted params)
+    on a 12 × 15 field; the card's 30 selections equal the oracle's."""
+    import chip_smoke
+
+    out = chip_smoke.greedy_vs_oracle(dev, oracle, [
+        "--preset", "c2_composite_restarts", "--rows", "12", "--cols", "15",
+        "--mode", "greedy", "--acq-rounds", "30", "--num-pilot", "10", "--iters", "60"])
+    assert np.isfinite(out["rec"]["final_rmse"])
+    assert out["launches"]["wtw_column"] >= 30
+    np.testing.assert_array_equal(out["selected"], out["oracle"])
+
+
 # ------------------------------------------------ the Cholesky kernel
 
 

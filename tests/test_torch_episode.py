@@ -193,5 +193,7 @@ def test_presets_equal_the_reference():
     assert tc.resolve_num_inducing(None, 140 * 140) == 1024
     assert {"c5_10k", "c5_episode", "c5_20k", "c5_100k", "c5_long", "c5_1m",
             "c5_4m", "c5_1m_long"} <= set(tc.PRESETS)
-    # the table preset needs the table loader, not ported: not offered
-    assert "c10_table" not in tc.PRESETS
+    # the table preset is offered, equal to the reference's (the loop
+    # above), reading the same CSV
+    assert "c10_table" in tc.PRESETS
+    assert tc.PRESETS["c10_table"].field.data_path == jc.PRESETS["c10_table"].field.data_path

@@ -60,12 +60,3 @@ def test_collect_noise_matches_reference(envs):
         np.testing.assert_array_equal(s_got.indices, s_ref.indices)
     with pytest.raises(ValueError):
         got.collect(idx, "lidar")
-
-
-@pytest.mark.parametrize("kw", [
-    dict(num_features=2), dict(num_traits=2), dict(feature_warp="sin"),
-    dict(data_path="data/sample_field.csv"), dict(feature_warp="tanh"),
-])
-def test_unported_field_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFieldEnv(TFieldConfig(num_rows=3, num_cols=4, **kw), device="cpu")

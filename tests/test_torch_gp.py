@@ -158,14 +158,6 @@ def test_restart_inits_layout():
     assert not torch.equal(inits.log_noise[1], base.log_noise)
 
 
-def test_lbfgs_is_not_ported_yet(rng):
-    tspec = tk.KernelSpec("rbf", ds=2)
-    x = torch.tensor(rng.uniform(0, 10, (8, 2)), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgp.fit(tspec, TFitConfig(optimizer="lbfgs", iters=2, restarts=1),
-                x, torch.zeros(8))
-
-
 # ------------------------------------------------- the episode surfaces
 
 

@@ -1,6 +1,7 @@
-"""algp_tpu_torch stands alone: it never imports JAX or networkx (the
-machine with the card has neither), nor Triton at import, and it keeps out
-of the paths that would not be a port of the reference's kernels."""
+"""algp_tpu_torch stands alone: it never imports JAX, networkx or pandas
+(the machine with the card has neither JAX nor networkx, and pandas is
+not known to be there), nor Triton at import, and it keeps out of the
+paths that would not be a port of the reference's kernels."""
 
 import io
 import subprocess
@@ -22,10 +23,10 @@ def test_import_pulls_in_no_jax():
         "import algp_tpu_torch.cli, algp_tpu_torch.episode, algp_tpu_torch.planning\n"
         "import algp_tpu_torch.native, algp_tpu_torch.utils.checkpoint\n"
         "import algp_tpu_torch.acquisition_lowrank, algp_tpu_torch.models.sparse_gp\n"
-        "import algp_tpu_torch.utils.metrics\n"
+        "import algp_tpu_torch.utils.metrics, algp_tpu_torch.models.multifit\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'optax', 'algp_tpu', 'triton', 'networkx')]\n"
+        "'optax', 'algp_tpu', 'triton', 'networkx', 'pandas')]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -47,7 +48,7 @@ def _code_names(path: Path) -> list[str]:
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_library_kernels_or_silent_fallbacks(path):
     names = _code_names(path)
-    for banned in ("cdist", "scaled_dot_product_attention", "optim", "jax"):
+    for banned in ("cdist", "scaled_dot_product_attention", "optim", "jax", "pandas"):
         assert banned not in names, f"{path.name} uses {banned}"
     for a, b in zip(names, names[1:]):
         assert (a, b) != ("torch", "compile"), f"{path.name} uses torch.compile"
