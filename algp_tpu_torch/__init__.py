@@ -2,8 +2,9 @@
 
 The JAX package `algp_tpu` is the reference; this package mirrors its
 module names (ops.kernels, ops.gram, ops.updates, ops.linalg, ops.chol,
-models.gp, models.sparse_gp, acquisition, acquisition_lowrank, field,
-planning, episode, cli, config, utils) with PyTorch idiom inside: plain
+models.gp, models.sparse_gp, models.multifit, models.coregional,
+models.networks, acquisition, acquisition_lowrank, field, planning,
+episode, cli, config, utils) with PyTorch idiom inside: plain
 functions on tensors with an explicit device, `torch.Generator` in place
 of `jax.random` keys, a written-out batch dimension in place of `vmap`
 and Python loops in place of `lax.scan` / `fori_loop`.  The paths that
@@ -11,15 +12,17 @@ run: `acquisition.fit_and_select`, its low-rank counterpart
 `acquisition_lowrank.fit_and_select_lowrank`, and the config-5 episode
 (`episode.Agent`, `python -m algp_tpu_torch.cli`) with the exact or the
 low-rank (FITC) planner, exact or SGPR refits and the z-ensemble, up to
-the 2048 × 2048 field of the `c5_4m` preset.  The entry points run on
-the CUDA card unless the caller asks for the CPU.
+the 2048 × 2048 field of the `c5_4m` preset, on fields with features,
+several traits (independent or ICM fits) or the phenotype table, with the
+stationary or the deep feature kernel.  The entry points run on the CUDA
+card unless the caller asks for the CPU.
 
 The reference's Pallas kernels are CUDA C++ kernels written for Hopper
 (`csrc/gram.cu`, `csrc/wtw_column.cu`, `csrc/chol.cu`), built with nvcc
 at first use (`ops/_cuda.py`).  A wrapper runs its plain PyTorch version
 for a CPU tensor; for a CUDA tensor it launches its kernel or raises.
 
-What is not ported yet raises NotImplementedError and is listed in
+What is not ported yet (the mesh paths, the tools) is listed in
 ROADMAP.md.  This package never imports JAX.
 """
 

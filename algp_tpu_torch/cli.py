@@ -14,6 +14,10 @@
         --value-cols height,width,stand_count                 # 3-trait table
     python -m algp_tpu_torch.cli --preset c5_10k --num-traits 3 \\
         --trait-corr 0.5 --trait-obs-frac 0.5                 # 3 traits
+    python -m algp_tpu_torch.cli --preset c5_10k --num-traits 3 \\
+        --trait-obs-frac 0.25 --multi-fit icm                 # ICM traits
+    python -m algp_tpu_torch.cli --preset c2_composite_restarts \\
+        --deep-hidden 16 --deep-out 4                         # deep kernel
     python -m algp_tpu_torch.cli --preset c5_episode --rows 8 --cols 12 \\
         --budget 24 --iters 10 --device cpu                   # on the CPU
 
@@ -25,14 +29,15 @@ the exact range, or with --num-inducing M > 0, goes through the low-rank
 `acquisition_lowrank.greedy_select_lowrank` over a k-center design;
 `--mi-ensemble K` averages K design variants in both modes).  On a
 multi-trait field (`--num-traits T`, or a table's `--value-cols`) both
-modes end with per-trait fits and report `trait_rmse_test`.
+modes end with per-trait fits (`--multi-fit independent | icm`) and
+report `trait_rmse_test`.  `--deep-hidden` (with features) fits a learned
+MLP embedding of the features jointly with the kernel; both modes then
+plan and select over the embedded candidates.
 A grid of 320 × 320 needs the FITC truth (`--preset c5_100k`): the dense
 truth's 102 400² factor does not fit on the card.
 
 Not ported: `--plots` and `--profile-dir` (the reference's matplotlib
-figures and jax.profiler trace), the deep-kernel flags `--deep-hidden` /
-`--deep-out`, and `--multi-fit icm`, which raises NotImplementedError
-(see ROADMAP.md).
+figures and jax.profiler trace; see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from algp_tpu_torch.config import (
-    PRESETS, ExperimentConfig, resolve_num_inducing, resolve_strategy,
+    PRESETS, ExperimentConfig, MLPSpec, resolve_num_inducing, resolve_strategy,
 )
 from algp_tpu_torch.device import resolve_device
 from algp_tpu_torch.episode import Agent
@@ -111,9 +116,15 @@ def build_parser() -> argparse.ArgumentParser:
                    "fields (equicorrelation mix; trait 0 unchanged)")
     p.add_argument("--multi-fit", choices=("independent", "icm"),
                    help="multi-trait model family: 'independent' = per-trait "
-                   "exact GPs (fit_multi); 'icm' is not ported yet")
+                   "exact GPs (fit_multi); 'icm' = coregionalized joint GP "
+                   "over the observed (plot, trait) cells")
     p.add_argument("--icm-rank", type=int,
                    help="rank of the ICM trait-covariance factor")
+    p.add_argument("--deep-hidden",
+                   help="deep feature kernel: comma-separated MLP hidden "
+                   "widths (e.g. '16' or '32,16'); needs --features > 0")
+    p.add_argument("--deep-out", type=int, default=4,
+                   help="deep feature kernel: embedding width (default 4)")
     p.add_argument("--optimizer", choices=("adam", "lbfgs"))
     p.add_argument("--lr", type=float)
     p.add_argument("--iters", type=int)
@@ -177,22 +188,37 @@ def config_from_args(args) -> ExperimentConfig:
              lagged_refit=args.lagged_refit,
              waypoint_goals=(tuple(int(g) for g in args.waypoint_goals.split(","))
                              if args.waypoint_goals else None))
+    deep = cfg.deep
+    if args.deep_hidden:
+        if kernel.df == 0:
+            raise SystemExit(
+                "--deep-hidden needs feature dims: pass --features > 0 "
+                "(a deep kernel over zero feature columns would learn a "
+                "constant embedding)"
+            )
+        deep = MLPSpec(hidden=tuple(int(h) for h in args.deep_hidden.split(",")),
+                       out=args.deep_out)
     return ExperimentConfig(kernel=kernel, fit=fit, acquisition=acqc,
-                            field=field, episode=ep)
+                            field=field, episode=ep, deep=deep)
 
 
 def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[dict]:
     """Configs 3-4: pilot → fit → `cfg.acquisition.rounds` greedy
     entropy / MI selections over every grid candidate → collect → refit →
     RMSE.  The fits draw their inits from generators seeded (seed + run,
-    0) and (seed + run, 1).  `mi_ensemble` = K > 1 stacks K k-center
-    designs, the j-th starting at (j · n) // K, as the episode does.  On a
-    multi-trait field every trait is measured again at the sampled plots
-    and fitted from the (seed + run, 1) inits (`models.multifit`), and the
-    record gains `trait_rmse` / `trait_rmse_test`."""
+    0) and (seed + run, 1).  With a deep kernel each fit trains the
+    embedding too, and selection, posterior and trait fits run over the
+    candidates embedded by the latest fit.  `mi_ensemble` = K > 1 stacks K
+    k-center designs, the j-th starting at (j · n) // K, as the episode
+    does.  On a multi-trait field every trait is measured again at the
+    sampled plots and fitted, under `cfg.fit.multi_fit`, from the (seed +
+    run, 1) inits (`models.multifit`), and the record gains `trait_rmse` /
+    `trait_rmse_test`."""
     from algp_tpu_torch import acquisition as acq
     from algp_tpu_torch import acquisition_lowrank as acq_lr
+    from algp_tpu_torch.models import coregional as icm_mod
     from algp_tpu_torch.models import gp as gp_mod
+    from algp_tpu_torch.models import networks as nets
 
     strategy = None
     summaries = []
@@ -216,14 +242,22 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
         seed = cfg.episode.seed + run
 
         def fit_on(idx, y, step):
+            """(result, effective spec, effective candidates, training x, y)."""
             idx_d = torch.as_tensor(idx, device=env.device)
             x = env.X.index_select(0, idx_d)
             y = torch.as_tensor(np.asarray(y, np.float32), device=env.device)
-            res = gp_mod.fit(cfg.kernel, cfg.fit, x, y, inits=gp_mod.step_inits(
-                cfg.kernel, cfg.fit, seed, step, env.device))
-            return res, x, y
+            if cfg.deep is None:
+                res = gp_mod.fit(cfg.kernel, cfg.fit, x, y, inits=gp_mod.step_inits(
+                    cfg.kernel, cfg.fit, seed, step, env.device))
+                return res, cfg.kernel, env.X, x, y
+            # the joint MLP + kernel fit, then every consumer sees
+            # [spatial | φ(features)]
+            res = nets.fit_step(cfg.kernel, cfg.deep, cfg.fit, x, y, None, seed, step)
+            X_eff = nets.embed_inputs(cfg.deep, res.mlp, env.X, cfg.kernel.ds)
+            return (res, nets.deep_spec(cfg.kernel, cfg.deep), X_eff,
+                    X_eff.index_select(0, idx_d), y)
 
-        res, _, _ = fit_on(s.indices, s.y, 0)
+        res, spec_eff, X_eff, _, _ = fit_on(s.indices, s.y, 0)
         nv_base = float(np.maximum(
             np.exp(2 * res.params.log_noise.cpu().numpy()), cfg.fit.min_noise**2))
         nv = torch.full((env.n,), nv_base, device=env.device)
@@ -232,25 +266,25 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
             # large-grid MI: low-rank complement precision over a k-center
             # design of the candidates (K variants for the z-ensemble)
             m = min(m_ind, env.n)
-            zs = [env.X.index_select(0, acq_lr.kcenter_indices(
-                env.X, m, start=(j * env.n) // k_ens)) for j in range(k_ens)]
+            zs = [X_eff.index_select(0, acq_lr.kcenter_indices(
+                X_eff, m, start=(j * env.n) // k_ens)) for j in range(k_ens)]
             z = torch.stack(zs) if k_ens > 1 else zs[0]
             sel = acq_lr.greedy_select_lowrank(
-                cfg.kernel, res.params, env.X, nv, pilot_d, z,
+                spec_eff, res.params, X_eff, nv, pilot_d, z,
                 rounds=cfg.acquisition.rounds, num_pilot=len(s.indices),
             )
         else:
             sel = acq.greedy_select(
-                cfg.kernel, res.params, env.X, nv, pilot_d,
+                spec_eff, res.params, X_eff, nv, pilot_d,
                 rounds=cfg.acquisition.rounds, num_pilot=len(s.indices),
                 strategy=strategy,
             )
         s2 = env.collect(sel.selected.cpu().numpy(), "precise")
         all_idx = np.concatenate([s.indices, s2.indices])
         all_y = np.concatenate([s.y, s2.y])
-        res2, x_all, y_all = fit_on(all_idx, all_y, 1)
-        post = gp_mod.posterior(cfg.kernel, res2.params, x_all, y_all)
-        mean, var = gp_mod.predict(cfg.kernel, res2.params, post, env.X)
+        res2, spec_eff, X_eff, x_all, y_all = fit_on(all_idx, all_y, 1)
+        post = gp_mod.posterior(spec_eff, res2.params, x_all, y_all)
+        mean, var = gp_mod.predict(spec_eff, res2.params, post, X_eff)
         mean, var = mean.cpu().numpy(), var.cpu().numpy()
         rec = {
             "run": run, "mode": "greedy", "strategy": strategy,
@@ -261,9 +295,11 @@ def run_greedy(cfg: ExperimentConfig, runs: int, device, stream=None) -> list[di
         }
         if env.num_traits > 1:
             _, Y, _, _ = env.collect_traits(all_idx, "precise")
+            inits = (icm_mod.step_inits(spec_eff, cfg.fit, env.num_traits, seed, 1,
+                                        env.device) if cfg.fit.multi_fit == "icm"
+                     else gp_mod.step_inits(spec_eff, cfg.fit, seed, 1, env.device))
             M = multifit.multitrait_mean_fields(
-                cfg.kernel, cfg.fit, env.X, all_idx, Y, None, env.observed_traits,
-                gp_mod.step_inits(cfg.kernel, cfg.fit, seed, 1, env.device))
+                spec_eff, cfg.fit, X_eff, all_idx, Y, None, env.observed_traits, inits)
             rec["multi_fit"] = cfg.fit.multi_fit
             rec["trait_rmse"] = env.rmse_traits(M)
             rec["trait_rmse_test"] = env.rmse_traits(M, test_only=True)

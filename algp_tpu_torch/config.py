@@ -54,9 +54,29 @@ class FitConfig:
     # refit_restarts inits (0 keeps the full-fit value; models.gp.refit_cfg).
     refit_iters: int = 0
     refit_restarts: int = 0
-    # Multi-trait model family (MULTI_FITS; "icm" is not ported yet).
+    # Multi-trait model family (MULTI_FITS): "independent" per-trait exact
+    # GPs, or "icm", the coregionalized joint GP (models/coregional) with
+    # a trait covariance B = A Aᵀ + diag κ, A of rank icm_rank.
     multi_fit: str = "independent"
     icm_rank: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPSpec:
+    """Architecture of the deep-kernel feature embedding φ: df → hidden* →
+    out (models/networks.py)."""
+
+    hidden: tuple = (16,)
+    out: int = 4
+    # tanh keeps the embedding bounded, so the feature lengthscales stay in
+    # a sane range
+    activation: str = "tanh"
+    # L2 penalty on the weight matrices added to the −MLL (without it the
+    # embedding can game the marginal likelihood); 0 = off
+    weight_decay: float = 0.0
+
+    def dims(self, df: int) -> list:
+        return [df, *self.hidden, self.out]
 
 
 #: planner auto-selection thresholds (resolve_num_inducing /
@@ -193,9 +213,8 @@ class ExperimentConfig:
     acquisition: AcquisitionConfig = AcquisitionConfig()
     field: FieldConfig = FieldConfig()
     episode: EpisodeConfig = EpisodeConfig()
-    # deep feature kernel (the reference's MLPSpec); not ported yet, so
-    # anything but None raises where it is used
-    deep: Optional[object] = None
+    # deep feature kernel: a learned MLP embedding of the feature columns
+    deep: Optional[MLPSpec] = None
 
 
 PRESETS: dict[str, ExperimentConfig] = {

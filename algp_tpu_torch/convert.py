@@ -6,6 +6,10 @@ reference's parameters (or its `make_restart_inits` output, with a
 leading restart axis) to the port as
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`.
 
+`icm_params_from_numpy` takes the ICM's parameters the same way, the
+kernel's fields under "kernel"; `mlp_from_numpy` takes the deep kernel's
+weights as a sequence of (W, b) pairs.
+
 `field_env_like` builds a port FieldEnv on the reference env's truth:
 the truth draws of the two packages come from different generators.
 """
@@ -20,6 +24,7 @@ import torch
 
 from algp_tpu_torch.config import FieldConfig
 from algp_tpu_torch.field import FieldEnv
+from algp_tpu_torch.models.coregional import ICMParams
 from algp_tpu_torch.ops.kernels import KernelParams
 
 _NAMES = tuple(f.name for f in dataclasses.fields(KernelParams))
@@ -41,6 +46,24 @@ def kernel_params_to_numpy(params: KernelParams) -> dict:
     return {
         name: getattr(params, name).detach().cpu().numpy() for name in _NAMES
     }
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def icm_params_from_numpy(mapping: Mapping, device="cpu") -> ICMParams:
+    """ICMParams from {"kernel": KernelParams fields, "coreg_a": …,
+    "log_coreg_kappa": …, "log_noise_t": …}."""
+    return ICMParams(
+        kernel=kernel_params_from_numpy(mapping["kernel"], device),
+        **{name: _tensor(mapping[name], device)
+           for name in ("coreg_a", "log_coreg_kappa", "log_noise_t")})
+
+
+def mlp_from_numpy(layers, device="cpu") -> list:
+    """The deep kernel's weights [(W, b), …] as f32 tensors on `device`."""
+    return [(_tensor(W, device), _tensor(b, device)) for W, b in layers]
 
 
 def field_env_like(ref_env, device=None) -> FieldEnv:

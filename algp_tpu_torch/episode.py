@@ -31,18 +31,24 @@ Refits: the exact MLL fit, or, once the sampled set exceeds
 Multi-trait fields (`env.num_traits` > 1): the episode plans on trait 0
 while every visit measures all traits (`env.collect_traits`, kept row by
 row in `EpisodeState.y_traits`, NaN where a visit skipped a trait); at
-the end `models.multifit` fits every trait on the sampled plots and
+the end `models.multifit` fits every trait on the sampled plots, under the
+independent or the ICM family (`FitConfig.multi_fit`), and
 `EpisodeResult.trait_rmse` / `trait_rmse_test` score each against its own
 observation mask.
 
-Random streams: the fit inits of step t come from `gp.step_inits(seed,
-t)` and the end-of-episode trait fits' from `multifit.trait_inits(seed)`
-(the reference's PRNGKey(seed) streams cannot be reproduced in torch);
-the agent and env numpy generators are the reference's, so a uniform
-episode draws the same sites.
+The deep feature kernel (`ExperimentConfig.deep`): every refit trains the
+MLP embedding with the kernel (`models.networks`) on the raw inputs, then
+re-embeds the candidate matrix (`_set_mlp`) before any seed or posterior
+cache is refilled for the new params, so every device consumer sees
+[spatial | φ(features)] under `networks.deep_spec`.  Its refits are full
+ones, from a fresh MLP each.
 
-Not ported (raise NotImplementedError, see ROADMAP.md): the deep feature
-kernel, the ICM trait family and the mesh episode.
+Random streams: the fit inits of step t come from `gp.step_inits(seed,
+t)` (the deep fit's from `networks.step_inits(seed, t)`) and the
+end-of-episode trait fits' from `multifit.trait_inits(seed)` or
+`icm_trait_inits(seed)` (the reference's PRNGKey(seed) streams cannot be reproduced in torch); the
+agent and env numpy generators are the reference's, so a uniform episode
+draws the same sites.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from algp_tpu_torch.config import (
 )
 from algp_tpu_torch.field import FieldEnv, Sample
 from algp_tpu_torch.models import gp as gp_mod
-from algp_tpu_torch.models import multifit, sparse_gp
+from algp_tpu_torch.models import multifit, networks, sparse_gp
 from algp_tpu_torch.utils.checkpoint import EpisodeState
 from algp_tpu_torch.utils.metrics import MetricsLogger
 
@@ -89,12 +95,6 @@ def _kcenter_subgrid_indices(nr: int, nc: int, target: int) -> np.ndarray:
     sr = -(-s // sc)
     return (np.arange(0, nr, sr, dtype=np.int64)[:, None] * nc
             + np.arange(0, nc, sc, dtype=np.int64)).ravel()
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"Agent: {what} is not ported to algp_tpu_torch yet; see ROADMAP.md"
-    )
 
 
 def _upload(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -146,8 +146,6 @@ class Agent:
 
     def __init__(self, env: FieldEnv, cfg: ExperimentConfig,
                  logger: Optional[MetricsLogger] = None):
-        if cfg.deep is not None:
-            raise _not_ported("the deep feature kernel")
         self._multi_trait = env.num_traits > 1
         if self._multi_trait:
             multifit.check_multi_fit(cfg.fit.multi_fit)
@@ -159,11 +157,28 @@ class Agent:
                 f"k-center design needs that many distinct sampled "
                 f"points when the sparse refit kicks in"
             )
+        if cfg.deep is not None:
+            if cfg.kernel.df == 0:
+                raise ValueError("deep kernel needs feature dims (df > 0)")
+            if cfg.episode.lagged_refit:
+                raise ValueError(
+                    "lagged_refit and the deep feature kernel are not combined "
+                    "(the refit re-embeds the candidate matrix — lagging would "
+                    "desync the embedding from the params consuming it)"
+                )
+            if cfg.fit.sparse_threshold:
+                raise ValueError(
+                    "episode-scale SGPR and the deep feature kernel are not "
+                    "combined (the joint embedding fit is exact-only)"
+                )
         self.env = env
         self.cfg = cfg
-        self.spec = cfg.kernel
+        # a deep kernel: every device consumer sees the embedded candidates
+        # under the effective spec; only the joint fit reads the raw ones
+        self.spec = (cfg.kernel if cfg.deep is None
+                     else networks.deep_spec(cfg.kernel, cfg.deep))
         self.device = env.device
-        self._Xdev = env.X
+        self._Xdev = env.X  # embedded by each deep refit (`_set_mlp`)
         self.logger = logger or MetricsLogger()
         self.rng = np.random.default_rng(cfg.episode.seed)
         self._pad_paths = 256  # static path-batch size, as the reference's
@@ -214,6 +229,7 @@ class Agent:
         self._P_cache = None  # (params, W, WT) — exact implicit-precision seed
         self._lr_cache = None  # (params, LowRankFactors or K of them) — low-rank seed
         self._z_cache = None  # the low-rank planner's inducing design
+        self._z_src = None  # the candidate matrix it was built over
         self._post_cache = None  # (params, n_samples, Posterior)
         self._base_noise_cache = None
         self._noise_vec_cache = None
@@ -257,10 +273,13 @@ class Agent:
         return (_upload(idx, torch.int64, dev), m,
                 _upload(ns, torch.float32, dev), _upload(y, torch.float32, dev))
 
-    def _padded_train(self, st: EpisodeState):
-        """(x, y, noise_scale, num_valid) padded to capacity, on the device."""
+    def _padded_train(self, st: EpisodeState, raw: bool = False):
+        """(x, y, noise_scale, num_valid) padded to capacity, on the device;
+        x from the raw candidates when `raw` (the deep fit trains the
+        embedding itself), else from the embedded ones."""
         idx, m, ns, y = self._padded_obs(st)
-        return self._Xdev.index_select(0, idx), y, ns, m
+        x_src = self.env.X if raw else self._Xdev
+        return x_src.index_select(0, idx), y, ns, m
 
     # ------------------------------------------------------------ pilot
 
@@ -292,12 +311,21 @@ class Agent:
         """Refit on the padded training buffers, queued on the device.
         After the pilot fit, warm refits (FitConfig.refit_iters /
         refit_restarts) start restart 0 from the incumbent.  `lagged`
-        stores the result as `st.pending_params`, adopted a plan later."""
-        x, y, ns, m = self._padded_train(st)
+        stores the result as `st.pending_params`, adopted a plan later.  A
+        deep refit is a full joint fit from a fresh MLP; it re-embeds the
+        candidates before returning."""
+        x, y, ns, m = self._padded_train(st, raw=True)
         fit = self.cfg.fit
         seed = self.cfg.episode.seed
-        warm = st.params is not None and (fit.refit_iters or fit.refit_restarts)
-        if fit.sparse_threshold and len(st.sampled_idx) > fit.sparse_threshold:
+        deep = self.cfg.deep
+        warm = (st.params is not None and (fit.refit_iters or fit.refit_restarts)
+                and deep is None)
+        if deep is not None:
+            res = networks.fit_step(self.cfg.kernel, deep, fit, x, y, ns, seed,
+                                    st.step, num_valid=m)
+            self._set_mlp(res.mlp)
+            st.mlp = res.mlp
+        elif fit.sparse_threshold and len(st.sampled_idx) > fit.sparse_threshold:
             # long campaign: the collapsed SGPR bound, O(n·M²) per step
             if warm:
                 res = sparse_gp.fit_step_sparse_warm(
@@ -322,6 +350,12 @@ class Agent:
         else:
             st.params = res.params
         return res
+
+    def _set_mlp(self, mlp) -> None:
+        """Adopt embedding weights: re-embed the candidate matrix (one
+        (N, df) → (N, dz) pass, queued) for every device consumer."""
+        self._Xdev = networks.embed_inputs(self.cfg.deep, mlp, self.env.X,
+                                           self.cfg.kernel.ds)
 
     def _base_noise(self, st: EpisodeState) -> float:
         """Fitted base noise variance with the f32 floor, read on the host
@@ -616,12 +650,12 @@ class Agent:
     def _lowrank_z(self) -> torch.Tensor:
         """The low-rank planner's inducing design: a k-center chain of
         min(M, n) points over the candidates, which depends only on the
-        candidate matrix, so it is computed once per episode (queued, no
-        host read).  Past _KCENTER_SUBSAMPLE candidates the chain (M
+        candidate matrix, so it is computed once per episode (again after
+        a deep refit re-embeds the candidates; queued, no host read).  Past _KCENTER_SUBSAMPLE candidates the chain (M
         sequential rounds over an (n,) vector) runs over a uniform
         sub-grid instead.  With mi_ensemble = K > 1: a (K, M, d) stack of
         K designs, the j-th starting at index (j · n_sub) // K."""
-        if self._z_cache is None:
+        if self._z_cache is None or self._z_src is not self._Xdev:
             xs = self._Xdev
             if self.env.n > _KCENTER_SUBSAMPLE:
                 sub = _kcenter_subgrid_indices(
@@ -636,6 +670,7 @@ class Agent:
                     for j in range(K)])
             else:
                 self._z_cache = xs.index_select(0, acq_lr.kcenter_indices(xs, m))
+            self._z_src = self._Xdev
         return self._z_cache
 
     def _lowrank_seed(self, st: EpisodeState, params=None):
@@ -680,8 +715,6 @@ class Agent:
         ep = self.cfg.episode
         if resume_from is not None:
             st = resume_from
-            if st.mlp is not None:
-                raise _not_ported("resuming a deep-kernel episode")
             # a multi-trait env needs the checkpoint's (n, T) trait rows (the
             # pilot's cannot be measured again): fail here, not mid-step
             ckpt_traits = st.y_traits.shape[1] if st.y_traits is not None else 1
@@ -701,8 +734,11 @@ class Agent:
         else:
             st = self.pilot_survey()
         t0 = time.perf_counter()
-        if st.params is None:
+        if st.params is None or (self.cfg.deep is not None and st.mlp is None):
             self.fit_model(st)
+        elif self.cfg.deep is not None:
+            # resume: the checkpointed embedding goes with its params
+            self._set_mlp(st.mlp)
         t_fit0 = time.perf_counter() - t0
         # the bundle carries the next step's plan with the current state's
         # metrics; plan wall time is attributed to the step it plans for
@@ -820,13 +856,16 @@ class Agent:
     def _trait_posteriors(self, st: EpisodeState):
         """End-of-episode multi-trait evaluation: every trait fitted on the
         campaign's plots (`multifit.multitrait_mean_fields`: one batched
-        `gp.fit_multi`, or per-trait fits where visits skipped traits),
-        then each trait's posterior mean field scored against its own
-        observation mask.  Returns (trait_rmse, trait_rmse_test)."""
+        `gp.fit_multi`, per-trait fits where visits skipped traits, or the
+        ICM over the observed cells), over the candidates and spec the
+        episode planned with, then each trait's posterior mean field scored
+        against its own observation mask.  Returns (trait_rmse,
+        trait_rmse_test)."""
+        fit, seed = self.cfg.fit, self.cfg.episode.seed
+        inits = (multifit.icm_trait_inits(self.spec, fit, self.env.num_traits, seed,
+                                          self.device) if fit.multi_fit == "icm"
+                 else multifit.trait_inits(self.spec, fit, seed, self.device))
         M = multifit.multitrait_mean_fields(
-            self.spec, self.cfg.fit, self._Xdev, np.asarray(st.sampled_idx),
-            st.y_traits, st.noise_scale, self.env.observed_traits,
-            multifit.trait_inits(self.spec, self.cfg.fit, self.cfg.episode.seed,
-                                 self.device),
-        )
+            self.spec, fit, self._Xdev, np.asarray(st.sampled_idx), st.y_traits,
+            st.noise_scale, self.env.observed_traits, inits)
         return self.env.rmse_traits(M), self.env.rmse_traits(M, test_only=True)

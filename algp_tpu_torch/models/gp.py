@@ -13,8 +13,11 @@ recursion over 10 pairs, then optax's zoom line search, under the
 reference's per-restart (`vmap`) semantics — each restart searches until
 its own search is done, a finished restart's state is frozen, and the
 trip loop ends when no restart still searches, which takes one
-device→host read a trip.  The fit differentiates only the plain small-n
-Gram; no kernel runs under autograd.  `fit_multi` fits T traits × R
+device→host read a trip.  Both loops run over any parameter tree
+(`tree_leaves`: `KernelParams`, the ICM's `ICMParams`, the deep kernel's
+(KernelParams, MLP weights)), its leaves in the reference's `tree_leaves`
+order.  The fit differentiates only the plain small-n Gram; no kernel
+runs under autograd.  `fit_multi` fits T traits × R
 restarts as one flat batch of T·R restarts.
 
 The episode's refits (`fit_step`, `fit_step_warm`) draw their restart
@@ -73,8 +76,9 @@ def effective_noise_var(
 def _masked_gram_with_noise(spec, params, x, nv, jitter, num_valid):
     """K + diag(noise) with identity padding beyond `num_valid`: padded
     rows/cols are exactly e_i, so with y = 0 there they add 0 to the
-    quadratic form and to the log-det."""
-    n = x.shape[0]
+    quadratic form and to the log-det.  `x` may carry the batch too (the
+    deep fit's per-restart embeddings, (R, n, d))."""
+    n = x.shape[-2]
     K = gram(spec, params, x, x)
     if nv.dim() == K.dim() - 2:  # one variance per batch element
         nv = nv[..., None]
@@ -100,7 +104,7 @@ def neg_mll(
     """Negative log marginal likelihood ½yᵀK⁻¹y + ½log|K| + (n/2)log 2π,
     one value per batch element of `params`.  With `num_valid`, entries
     ≥ num_valid are identity-padded and contribute exactly zero."""
-    n = x.shape[0]
+    n = x.shape[-2]
     nv = effective_noise_var(params, min_noise, noise_scale)
     if num_valid is not None:
         y = y * (torch.arange(n, device=y.device) < num_valid)
@@ -146,30 +150,61 @@ def _adam_step(g, mu, nu, count):
     return upd, mu, nu
 
 
-def _opt_loop(
-    cfg: FitConfig,
-    loss: Callable[[KernelParams], torch.Tensor],
-    params0: KernelParams,
-):
+def tree_leaves(tree) -> list:
+    """The tensors of a parameter tree in the reference's `tree_leaves`
+    order: a dataclass's fields in order, a list's or tuple's items in
+    order, recursively (`KernelParams`; `ICMParams`; the deep fit's
+    `(KernelParams, [(W0, b0), (W1, b1), …])`)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [leaf for f in dataclasses.fields(tree)
+                for leaf in tree_leaves(getattr(tree, f.name))]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    raise TypeError(f"not a parameter tree: {type(tree).__name__}")
+
+
+def tree_rebuild(like, leaves):
+    """A tree shaped as `like` holding `leaves` (in `tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if dataclasses.is_dataclass(t):
+            return type(t)(**{f.name: build(getattr(t, f.name))
+                              for f in dataclasses.fields(t)})
+        return type(t)(build(item) for item in t)
+
+    return build(like)
+
+
+def tree_map(fn, tree):
+    """`tree` with `fn` applied to every leaf."""
+    return tree_rebuild(tree, [fn(leaf) for leaf in tree_leaves(tree)])
+
+
+def _opt_loop(cfg: FitConfig, loss: Callable, params0):
     """The optimizer loop over `cfg.iters` steps with best-ever tracking
-    and the non-finite guard; `loss` maps batched params to one value per
-    restart.  Returns (best_params, best_nll, trace (R, iters))."""
+    and the non-finite guard; `params0` is any parameter tree whose leaves
+    carry a leading restart axis, and `loss` maps such a tree to one value
+    per restart.  A leaf the loss detaches (the reference's
+    `stop_gradient`) gets a zero gradient, so Adam leaves it exactly where
+    it started.  Returns (best_params, best_nll, trace (R, iters))."""
     if cfg.optimizer == "lbfgs":
         return _lbfgs_loop(cfg, loss, params0)
     if cfg.optimizer != "adam":
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    names = [f.name for f in dataclasses.fields(KernelParams)]
-    p = [getattr(params0, name).detach().clone() for name in names]
+    p = [t.detach().clone() for t in tree_leaves(params0)]
     mu = [torch.zeros_like(t) for t in p]
     nu = [torch.zeros_like(t) for t in p]
     best_p = [t.clone() for t in p]
-    best_nll = torch.full(
-        params0.log_outputscale.shape, torch.inf, device=p[0].device
-    )
+    best_nll = torch.full(p[0].shape[:1], torch.inf, device=p[0].device)
     trace = []
     for step in range(1, cfg.iters + 1):
         leaves = [t.requires_grad_(True) for t in p]
-        nll = loss(KernelParams(**dict(zip(names, leaves))))
+        nll = loss(tree_rebuild(params0, leaves))
         grads = torch.autograd.grad(nll.sum(), leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g
                  for t, g in zip(leaves, grads)]
@@ -186,31 +221,31 @@ def _opt_loop(
 
     with torch.no_grad():
         # the final iterate may beat the best tracked pre-update value
-        nll_fin = loss(KernelParams(**dict(zip(names, p))))
+        nll_fin = loss(tree_rebuild(params0, p))
         better = nll_fin < best_nll
         best_nll = torch.where(better, nll_fin, best_nll)
         best_p = [torch.where(_bcast(better, a), a, b)
                   for a, b in zip(p, best_p)]
         # non-finite guard: a diverged restart must never win the argmin
         best_nll = torch.where(torch.isfinite(best_nll), best_nll, torch.inf)
-    return (
-        KernelParams(**dict(zip(names, best_p))),
-        best_nll,
-        torch.stack(trace, dim=-1),
-    )
+    return tree_rebuild(params0, best_p), best_nll, torch.stack(trace, dim=-1)
 
 
+def _flat(p) -> torch.Tensor:
+    """(R, P) batched params: the leaves side by side, in `tree_leaves`
+    order."""
+    return torch.cat([t.reshape(t.shape[0], -1) for t in tree_leaves(p)], dim=1)
 
-def _flat(p: KernelParams) -> torch.Tensor:
-    """(R, P) batched params: the fields side by side."""
-    return torch.cat([p.log_ls_spatial, p.log_ls_feature,
-                      p.log_outputscale[:, None], p.log_noise[:, None]], dim=1)
 
-
-def _unflat(x: torch.Tensor, like: KernelParams) -> KernelParams:
-    ds, df = like.log_ls_spatial.shape[-1], like.log_ls_feature.shape[-1]
-    return KernelParams(log_ls_spatial=x[:, :ds], log_ls_feature=x[:, ds:ds + df],
-                        log_outputscale=x[:, ds + df], log_noise=x[:, ds + df + 1])
+def _unflat(x: torch.Tensor, like):
+    """The tree shaped as `like` whose leaves are the columns of `x`
+    (views)."""
+    leaves, off = [], 0
+    for t in tree_leaves(like):
+        size = t[0].numel()
+        leaves.append(x[:, off:off + size].reshape(t.shape))
+        off += size
+    return tree_rebuild(like, leaves)
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -365,7 +400,7 @@ def _zoom_linesearch(vg, x, u, value, grad):
     return st["stepsize"], st["value"], st["grad"]
 
 
-def _lbfgs_loop(cfg: FitConfig, loss, params0: KernelParams):
+def _lbfgs_loop(cfg: FitConfig, loss, params0):
     """`_opt_loop` under optax.lbfgs(): each step preconditions the
     gradient by the two-loop recursion over the last 10 (Δparams, Δgrad)
     pairs (γ = capped 1/‖g‖ at the first step, then ΔgᵀΔp / ‖Δg‖²), runs
@@ -430,16 +465,18 @@ def _lbfgs_loop(cfg: FitConfig, loss, params0: KernelParams):
         best_nll = torch.where(better, nll_fin, best_nll)
         best_x = torch.where(better[:, None], x, best_x)
         best_nll = torch.where(torch.isfinite(best_nll), best_nll, torch.inf)
-    return _unflat(best_x, params0).map(torch.clone), best_nll, torch.stack(trace, dim=-1)
+    return (tree_map(torch.clone, _unflat(best_x, params0)), best_nll,
+            torch.stack(trace, dim=-1))
 
 
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape(*mask.shape, *([1] * (like.dim() - mask.dim())))
 
 
-def _take(p: KernelParams, k: torch.Tensor) -> KernelParams:
-    """Restart k of batched params, k a device index (no host sync)."""
-    return p.map(lambda a: a.index_select(0, k.reshape(1))[0])
+def _take(p, k: torch.Tensor):
+    """Restart k of a batched parameter tree, k a device index (no host
+    sync)."""
+    return tree_map(lambda a: a.index_select(0, k.reshape(1))[0], p)
 
 
 def _mll_loss(spec, cfg: FitConfig, x, y, noise_scale, num_valid=None):
@@ -572,16 +609,21 @@ def trait_result(res: FitResult, t: int) -> FitResult:
 # ---------------------------------------------------------------------------
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on `device` seeded by (seed, step) alone (the
+    counterpart of the reference's fold_in(PRNGKey(seed), step)), so a
+    resumed run repeats its draws."""
+    mixed = int(np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
 def step_inits(
     spec: KernelSpec, cfg: FitConfig, seed: int, step: int, device
 ) -> KernelParams:
-    """Restart inits of the refit at episode step `step`: draws from a
-    generator seeded by (seed, step) alone, so a resumed run repeats
-    them."""
-    mixed = int(np.random.SeedSequence([int(seed), int(step)]).generate_state(
-        1, np.uint64)[0] >> np.uint64(1))
-    gen = torch.Generator(device=device).manual_seed(mixed)
-    return make_restart_inits(spec, cfg, gen)
+    """Restart inits of the refit at episode step `step`, drawn from
+    `step_generator(seed, step)`."""
+    return make_restart_inits(spec, cfg, step_generator(seed, step, device))
 
 
 def fit_step(

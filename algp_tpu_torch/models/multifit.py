@@ -10,11 +10,16 @@ posterior mean fields over the whole candidate matrix:
                  batch); an under-observed one falls back to a fit per
                  trait on that trait's own observed plots (host loop,
                  end of episode only).
-  "icm"          the coregionalized joint GP: not ported yet (ROADMAP.md
-                 item 15); it raises.
+  "icm"          the coregionalized joint GP (models.coregional), fitted
+                 on the genuinely observed (plot, trait) cells only: the
+                 per-visit NaN mask and the env's ground-truth observation
+                 mask (a table's imputed cells are masked out, not
+                 conditioned on).
 
-Every fit starts from `inits` (restart axis leading), the same for every
-trait, as the reference's fits share one key.
+Every fit starts from `inits` of the configured family, restart axis
+leading: `KernelParams` for "independent" (the same for every trait, as
+the reference's fits share one key), `ICMParams` for "icm"; an episode
+draws them with `trait_inits` / `icm_trait_inits`.
 """
 
 from __future__ import annotations
@@ -27,20 +32,15 @@ import torch
 
 from algp_tpu_torch.config import MULTI_FITS, FitConfig
 from algp_tpu_torch.device import resolve_device
+from algp_tpu_torch.models import coregional as icm_mod
 from algp_tpu_torch.models import gp as gp_mod
 from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec
 
 
 def check_multi_fit(name: str) -> None:
-    """Raise for a family the port cannot fit: ValueError for an unknown
-    name, NotImplementedError for the ICM."""
+    """ValueError for an unknown family name."""
     if name not in MULTI_FITS:
         raise ValueError(f"unknown multi_fit {name!r}; use {MULTI_FITS}")
-    if name == "icm":
-        raise NotImplementedError(
-            "multi_fit='icm' (the coregionalized model, models/coregional) is "
-            "not ported to algp_tpu_torch yet; see ROADMAP.md item 15"
-        )
 
 
 def trait_inits(spec: KernelSpec, cfg: FitConfig, seed: int,
@@ -52,6 +52,13 @@ def trait_inits(spec: KernelSpec, cfg: FitConfig, seed: int,
     return gp_mod.make_restart_inits(spec, cfg, gen)
 
 
+def icm_trait_inits(spec: KernelSpec, cfg: FitConfig, num_traits: int, seed: int,
+                    device=None) -> icm_mod.ICMParams:
+    """The ICM family's counterpart of `trait_inits` (rank `cfg.icm_rank`)."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(int(seed))
+    return icm_mod.make_icm_inits(spec, cfg, num_traits, cfg.icm_rank, gen)
+
+
 def multitrait_mean_fields(
     spec: KernelSpec,
     fitcfg: FitConfig,
@@ -60,7 +67,7 @@ def multitrait_mean_fields(
     Y_raw: np.ndarray,
     noise_scale: Optional[np.ndarray],
     observed_traits: np.ndarray,
-    inits: KernelParams,
+    inits,
 ) -> np.ndarray:
     """Per-trait posterior mean fields, (N, T) host array.
 
@@ -70,9 +77,14 @@ def multitrait_mean_fields(
     noise_scale    : (n,) heteroscedastic variance multipliers or None
     observed_traits: (N, T) ground-truth observation mask (the ICM's; the
                      independent family fits every measured cell)
-    inits          : restart inits, restart axis leading
+    inits          : restart inits of the family, restart axis leading:
+                     KernelParams ("independent") or ICMParams ("icm")
     """
     check_multi_fit(fitcfg.multi_fit)
+    want = icm_mod.ICMParams if fitcfg.multi_fit == "icm" else KernelParams
+    if not isinstance(inits, want):
+        raise TypeError(f"multi_fit={fitcfg.multi_fit!r} starts from {want.__name__} "
+                        f"inits, got {type(inits).__name__}")
     dev = X_all.device
     obs_visit = ~np.isnan(Y_raw)
     Y_np = np.nan_to_num(Y_raw, nan=0.0)
@@ -80,6 +92,16 @@ def multitrait_mean_fields(
 
     def on_dev(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    if fitcfg.multi_fit == "icm":
+        obs = torch.as_tensor(obs_visit & observed_traits[idx], device=dev)
+        x = X_all.index_select(0, torch.as_tensor(idx, device=dev))
+        ns = None if noise_scale is None else on_dev(noise_scale)
+        # means only: the variance pass would add T (nT, N) solves for nothing
+        mean, _, _ = icm_mod.fit_predict_icm(
+            spec, fitcfg, x, on_dev(Y_np), X_all, obs, ns, rank=fitcfg.icm_rank,
+            compute_var=False, inits=inits)
+        return mean.cpu().numpy()
 
     def mean_field(params, x, y, ns):
         post = gp_mod.posterior(spec, params, x, y, ns, min_noise=fitcfg.min_noise,

@@ -4,9 +4,11 @@ algp_tpu.utils.checkpoint).
 Episode state is small — sampled indices, measurements, noise scales,
 hyperparameters, pose, remaining budget, rng states — so one .npz holds
 it, in the reference's layout (the `KernelParams` as f32 numpy arrays
-under the same keys).  Selection is a pure function of this state, so a
-resumed run continues exactly.  `load` puts the params on `device` (the
-card unless the caller asks for the CPU).
+under the same keys, a deep kernel's weights as `mlp_layers`, `mlp_W{i}`,
+`mlp_b{i}`), so a checkpoint of either package loads in the other.
+Selection is a pure function of this state, so a resumed run continues
+exactly.  `load` puts the params and weights on `device` (the card unless
+the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ class EpisodeState:
     step: int
     params: Optional[KernelParams] = None  # fitted hyperparameters
     rng_state: Optional[dict] = None  # np.random.Generator bit states
-    mlp: Optional[list] = None  # deep-kernel weights (not ported; None)
+    mlp: Optional[list] = None  # deep-kernel embedding weights [(W, b), …]
     goal_i: int = 0  # next EpisodeConfig.waypoint_goals entry to visit
     # EpisodeConfig.lagged_refit: a refit result not yet consumed by a plan
     pending_params: Optional[KernelParams] = None
@@ -60,11 +62,6 @@ def _params_from(z, prefix: str, device) -> Optional[KernelParams]:
 
 
 def save(path: str, state: EpisodeState) -> None:
-    if state.mlp is not None:
-        raise NotImplementedError(
-            "checkpoints of deep-kernel episodes are not ported to "
-            "algp_tpu_torch yet; see ROADMAP.md"
-        )
     blobs = {
         "sampled_idx": state.sampled_idx,
         "y": state.y,
@@ -84,20 +81,25 @@ def save(path: str, state: EpisodeState) -> None:
         blobs["rng_state_json"] = np.frombuffer(
             json.dumps(state.rng_state).encode(), dtype=np.uint8
         )
+    if state.mlp is not None:
+        blobs["mlp_layers"] = np.asarray(len(state.mlp))
+        for i, (W, b) in enumerate(state.mlp):
+            blobs[f"mlp_W{i}"] = W.detach().cpu().numpy()
+            blobs[f"mlp_b{i}"] = b.detach().cpu().numpy()
     np.savez(path, **blobs)
 
 
 def load(path: str, device=None) -> EpisodeState:
     device = resolve_device(device)
     with np.load(path) as z:
-        if "mlp_layers" in z.files:
-            raise NotImplementedError(
-                "checkpoints of deep-kernel episodes are not ported to "
-                "algp_tpu_torch yet; see ROADMAP.md"
-            )
         rng_state = None
         if "rng_state_json" in z.files:
             rng_state = json.loads(z["rng_state_json"].tobytes().decode())
+        mlp = None
+        if "mlp_layers" in z.files:
+            mlp = [tuple(torch.as_tensor(np.asarray(z[f"mlp_{k}{i}"], np.float32),
+                                         device=device) for k in "Wb")
+                   for i in range(int(z["mlp_layers"]))]
         return EpisodeState(
             sampled_idx=z["sampled_idx"],
             y=z["y"],
@@ -107,6 +109,7 @@ def load(path: str, device=None) -> EpisodeState:
             step=int(z["step"]),
             params=_params_from(z, "p", device),
             rng_state=rng_state,
+            mlp=mlp,
             goal_i=int(z["goal_i"]) if "goal_i" in z.files else 0,
             pending_params=_params_from(z, "q", device),
             y_traits=z["y_traits"] if "y_traits" in z.files else None,

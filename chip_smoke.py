@@ -25,7 +25,9 @@ script exits non-zero and never prints the final line:
                 2e-6·s² and timed in turns against the plain version at
                 the feature paths' shapes: 1 000² at d = 2 + 3 (c2, c10),
                 1 000² at d = 2 + 1 (the warped truth), 10 240² at d = 2 + 3
-                (phase 12d's seed)
+                (phase 12d's seed), and the deep kernel's embedded width
+                d = 2 + 4 at 1 000² (14c's plan cross-Gram) and 10 240²
+                (14d's seed)
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
                 and a ragged N; bitwise repeatability; times per call
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
@@ -73,6 +75,9 @@ script exits non-zero and never prints the final line:
                 monolithic seed pick the same path; their largest LB
                 difference is printed), c5_1m_long refits by SGPR and
                 keeps its capacity of 640
+ 12d, 14d run first of the feature phases (their f64 oracles, ≈ 150 s of
+                host numpy each, run in two worker processes while the
+                card goes on) and print their lines after phase 10:
  12a-12c. episode_c2, episode_c2_lbfgs, episode_c2_warp — the preset
                 `c2_composite_restarts` (25 × 40 field with 3 features,
                 Matérn 5/2 × RBF, 4 restarts) through the CLI once each: Adam,
@@ -89,6 +94,20 @@ script exits non-zero and never prints the final line:
                 the CLI once each, with phase 9's checks; for the trait runs
                 every trait's RMSE finite, trait 0's scored as the headline
                 RMSE is scored, and the end-of-episode trait fits' seconds
+ 14a-14b. episode_traits_icm, episode_table_icm — `c5_10k --num-traits 3
+                --trait-corr 0.8 --trait-obs-frac 0.25 --multi-fit icm` and
+                `c10_table --value-cols height,width,stand_count --multi-fit
+                icm` through the CLI once each, with phase 9's checks; the
+                end-of-episode ICM fit's seconds, and beside its per-trait
+                held-out RMSE the independent family's on the same final
+                state (planning does not depend on the family)
+ 14c. episode_c2_deep — `c2_composite_restarts --feature-warp tanh
+                --deep-hidden 16 --deep-out 4` through the CLI once, with
+                phase 9's checks; the deep refits' seconds against 12c's
+ 14d. greedy_c2_deep — phase 12d's command with `--deep-hidden 16 --deep-out
+                4`: the composite Gram at 10 000² over the embedded d = 2 + 4,
+                50 rounds on the wtw kernel; the 50 selections equal the f64
+                oracle's on the embedded candidates and the fitted params
  10. chol     — the Cholesky kernel vs its plain version (cuSOLVER) and an
                 f64 factor at n = 997 (ragged), the episode's 10 000 seed
                 and the main path's 10 240 seed: residuals, errors, NaN on
@@ -103,7 +122,7 @@ script exits non-zero and never prints the final line:
                 the card's bound
 Each path (main, episode, lowrank_main, episode_100k, episode_long,
 lowrank_1m, episode_1m, episode_4m, episode_4m_ens, episode_1m_long, the
-phases 12a-13c, the Cholesky seed path) runs with the kernel counts set to
+phases 12a-14d, the Cholesky seed path) runs with the kernel counts set to
 0 just before it and read just after.  The line before the kernels line gives the
 script's total seconds.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -116,6 +135,8 @@ import dataclasses
 import importlib.util
 import io
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -165,9 +186,22 @@ TRAIT_EPISODES = (
     ("episode_traits_10k", ["--preset", "c5_10k", "--num-traits", "3",
                             "--trait-corr", "0.5", "--trait-obs-frac", "0.5"]),
 )
+# the model families (phases 14a-14d): the ICM at the end of a trait
+# episode, the deep kernel in an episode and in greedy selection
+DEEP_ARGS = ["--deep-hidden", "16", "--deep-out", "4"]
+ICM_EPISODES = (
+    ("episode_traits_icm", ["--preset", "c5_10k", "--num-traits", "3", "--trait-corr",
+                            "0.8", "--trait-obs-frac", "0.25", "--multi-fit", "icm"]),
+    ("episode_table_icm", ["--preset", "c10_table", "--value-cols",
+                           "height,width,stand_count", "--multi-fit", "icm"]),
+)
+DEEP_EPISODE = ("episode_c2_deep", C2_ARGS + ["--feature-warp", "tanh"] + DEEP_ARGS)
+GREEDY_C2_DEEP_ARGS = GREEDY_C2_ARGS + DEEP_ARGS
 # the composite Gram (Matérn 5/2 × RBF) at the feature paths' shapes:
-# (side of the square, rows × cols of the grid, feature width)
-COMPOSITE_GRAM_CASES = ((1000, (25, 40), 3), (1000, (25, 40), 1), (10240, (100, 100), 3))
+# (side of the square, rows × cols of the grid, feature width); width 4 is
+# the deep kernel's embedding
+COMPOSITE_GRAM_CASES = ((1000, (25, 40), 3), (1000, (25, 40), 1), (10240, (100, 100), 3),
+                        (1000, (25, 40), 4), (10240, (100, 100), 4))
 # the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and FP32 flop/s outside the tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -1328,15 +1362,19 @@ def phase_episode_1m_long(dev, card: str) -> dict:
         "samples, device metrics", checks)
 
 
-def phase_field_episode(dev, card: str, tag: str, args: list) -> dict:
-    """A feature or trait preset through the CLI, once, with phase 9's
-    checks and the fits' seconds (refit steps' `fit_s`).  On a multi-trait
-    field also: one end-of-episode trait evaluation, every trait's RMSE
-    finite, and trait 0's RMSE scored as the headline RMSE is scored
-    (`env.rmse` of trait 0's mean field); the headline (the last refit's
-    posterior) and trait 0's fit (every sample, its own inits) are
-    reported side by side."""
+def phase_field_episode(dev, card: str, tag: str, args: list,
+                        fit_s_against: tuple = None) -> dict:
+    """A feature, trait or model-family preset through the CLI, once, with
+    phase 9's checks and the fits' seconds (refit steps' `fit_s`; beside
+    them another phase's, `fit_s_against` = (tag, seconds)).  On a
+    multi-trait field also: one end-of-episode trait evaluation, every
+    trait's RMSE finite, and trait 0's RMSE scored as the headline RMSE is
+    scored (`env.rmse` of trait 0's mean field); the headline (the last
+    refit's posterior) and trait 0's fit (every sample, its own inits) are
+    reported side by side.  Under the ICM family also the independent
+    family's per-trait RMSE on the same final state."""
     from algp_tpu_torch import cli
+    from algp_tpu_torch.models import multifit
 
     run = run_episodes(dev, args, tag, warm=False)
     cfg = cli.config_from_args(cli.build_parser().parse_args(args))
@@ -1346,6 +1384,12 @@ def phase_field_episode(dev, card: str, tag: str, args: list) -> dict:
             and h["step"] % cfg.episode.refit_every == 0]
     out.update(fit_s_median=float(np.median(fits)), fit_s_total=float(np.sum(fits)),
                optimizer=cfg.fit.optimizer, features=cfg.kernel.df)
+    if cfg.deep is not None:
+        out.update(deep={"hidden": list(cfg.deep.hidden), "out": cfg.deep.out},
+                   embedded_dim=cfg.kernel.ds + cfg.deep.out,
+                   mlp_shapes=[list(W.shape) for W, _ in run["state"].mlp])
+    if fit_s_against is not None:
+        out["fit_s_median_of_" + fit_s_against[0]] = fit_s_against[1]
     pr = run["probes"]["traits"]
     T = run["state"].y_traits.shape[1] if run["state"].y_traits is not None else 1
     if T > 1:
@@ -1356,20 +1400,52 @@ def phase_field_episode(dev, card: str, tag: str, args: list) -> dict:
             raise AssertionError(f"{tag}: trait RMSE {tr}, held-out {trt}")
         if (env.rmse(M[:, 0]), env.rmse(M[:, 0], test_only=True)) != (tr[0], trt[0]):
             raise AssertionError(f"{tag}: trait 0 scored apart from the headline RMSE")
+        st = run["state"]
+        path = ("ICM over the observed cells" if cfg.fit.multi_fit == "icm" else
+                "batched fit_multi" if not np.isnan(st.y_traits).any()
+                else "per-trait (visits skipped traits)")
         out.update(traits=T, trait_rmse=tr, trait_rmse_test=trt,
-                   trait_fit_s=pr[0]["s"],
-                   trait_path="batched fit_multi" if not np.isnan(
-                       run["state"].y_traits).any() else "per-trait (visits skipped traits)",
+                   trait_fit_s=pr[0]["s"], multi_fit=cfg.fit.multi_fit, trait_path=path,
                    headline_rmse_test=out["rmse_test_final"])
+        if cfg.fit.multi_fit == "icm":
+            # the independent family on the same final state: the planning
+            # does not depend on the family, so the pair is exact
+            ind = dataclasses.replace(cfg.fit, multi_fit="independent")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M_ind = multifit.multitrait_mean_fields(
+                cfg.kernel, ind, env.X, np.asarray(st.sampled_idx), st.y_traits,
+                st.noise_scale, env.observed_traits,
+                multifit.trait_inits(cfg.kernel, ind, cfg.episode.seed, dev))
+            out.update(icm_rank=cfg.fit.icm_rank,
+                       independent_trait_fit_s=time.perf_counter() - t0,
+                       independent_trait_rmse=env.rmse_traits(M_ind),
+                       independent_trait_rmse_test=env.rmse_traits(M_ind, test_only=True))
     emit(tag, **out)
     return {"launches": run["launches"], "fit_s_median": out["fit_s_median"]}
 
 
-def greedy_vs_oracle(dev, oracle, args: list) -> tuple:
+def oracle_greedy_mi(oracle_path: str, spec: dict, x, ls_spatial, ls_feature,
+                     outputscale: float, nv: float, rounds: int, pilot) -> tuple:
+    """The f64 oracle's greedy MI selections on the given inputs (host
+    numpy; runs in a worker process too): (selections, seconds)."""
+    oracle = load_module("oracle", Path(oracle_path))
+    t0 = time.perf_counter()
+    K = oracle.gram(x, x, spatial_kind=spec["spatial_kind"],
+                    feature_kind=spec["feature_kind"], ds=spec["ds"],
+                    ls_spatial=ls_spatial, ls_feature=ls_feature, outputscale=outputscale)
+    ref, _ = oracle.greedy_mi_selection(K, nv, rounds, pilot)
+    return ref, time.perf_counter() - t0
+
+
+def greedy_vs_oracle(dev, oracle, args: list, pool=None) -> dict:
     """Greedy MI of `cli.run_greedy` (a field with features): its record,
     the fitted params, nv and pilots it selected with, its selections,
-    and the f64 oracle's on the same inputs.  The Gram and wtw launches of
-    the run are counted; the oracle's work is host numpy."""
+    and the f64 oracle's on the same inputs (the candidates it selected
+    over: embedded ones for a deep kernel).  The Gram and wtw launches of
+    the run are counted; the oracle's work is host numpy, in `pool` when
+    given (then `oracle_future` resolves to (selections, seconds)),
+    else here."""
     from algp_tpu_torch import acquisition as acq
     from algp_tpu_torch import cli
 
@@ -1400,46 +1476,52 @@ def greedy_vs_oracle(dev, oracle, args: list) -> tuple:
     launches = _counts()
     spec, p = seen["spec"], seen["params"]
     x = seen["X"].cpu().numpy().astype(np.float64)
-    t0 = time.perf_counter()
-    K = oracle.gram(x, x, spatial_kind=spec.spatial_kind, feature_kind=spec.feature_kind,
-                    ds=spec.ds,
-                    ls_spatial=np.exp(p.log_ls_spatial.cpu().numpy().astype(np.float64)),
-                    ls_feature=np.exp(p.log_ls_feature.cpu().numpy().astype(np.float64)),
-                    outputscale=float(torch.exp(p.log_outputscale)))
-    ref, _ = oracle.greedy_mi_selection(K, float(seen["nv"][0]), cfg.acquisition.rounds,
-                                        seen["pilot"].cpu().numpy())
-    return dict(rec=rec, selected=seen["selected"], oracle=ref, run_ms=run_ms,
-                select_ms=seen["select_ms"], launches=launches,
-                oracle_s=time.perf_counter() - t0)
+    job = (str(Path(oracle.__file__).resolve()), dataclasses.asdict(spec), x,
+           np.exp(p.log_ls_spatial.cpu().numpy().astype(np.float64)),
+           np.exp(p.log_ls_feature.cpu().numpy().astype(np.float64)),
+           float(torch.exp(p.log_outputscale)), float(seen["nv"][0]),
+           cfg.acquisition.rounds, seen["pilot"].cpu().numpy())
+    out = dict(rec=rec, selected=seen["selected"], run_ms=run_ms, X_dim=int(x.shape[1]),
+               select_ms=seen["select_ms"], launches=launches)
+    if pool is not None:
+        out["oracle_future"] = pool.apply_async(oracle_greedy_mi, job)
+    else:
+        out["oracle"], out["oracle_s"] = oracle_greedy_mi(*job)
+    return out
 
 
-def phase_greedy_c2(dev, oracle, card: str, main_ms: float) -> dict:
-    """12d: c2_composite_restarts' greedy MI on the 100 × 100 field with 3
-    features (the composite Gram at 10 000², the exact seed, 50 rounds on
-    the wtw kernel), counted from 0; its selections against the f64
-    oracle."""
+def phase_greedy_c2(dev, oracle, card: str, main_ms: float, tag: str, args: list,
+                    workload: str, pool) -> dict:
+    """12d / 14d: c2_composite_restarts' greedy MI on the 100 × 100 field
+    with 3 features (the composite Gram at 10 000², the exact seed, 50
+    rounds on the wtw kernel), counted from 0; 14d with the deep kernel,
+    over the embedded d = 2 + 4.  The f64 oracle runs in `pool`: the
+    returned `finish` waits for it, holds the selections against it and
+    prints the phase's line."""
     torch.cuda.synchronize()
     _zero_counts()
-    out = greedy_vs_oracle(dev, oracle, GREEDY_C2_ARGS)
-    sel, ref, rec, launches = out["selected"], out["oracle"], out["rec"], out["launches"]
+    out = greedy_vs_oracle(dev, oracle, args, pool)
+    sel, rec, launches = out["selected"], out["rec"], out["launches"]
     if not np.isfinite([rec["final_rmse"], rec["final_rmse_test"]]).all():
-        raise AssertionError(f"greedy_c2: non-finite RMSE {rec}")
+        raise AssertionError(f"{tag}: non-finite RMSE {rec}")
     if launches["wtw_column"] != 50 or launches["gram"] < 3 or launches["cholesky"]:
-        raise AssertionError(f"greedy_c2 launches: {launches}")
-    if not np.array_equal(sel, ref):
-        first = int(np.flatnonzero(sel != ref)[0])
-        raise AssertionError(f"greedy_c2 selections differ from the f64 oracle from round "
-                             f"{first}: {sel[first:first + 5]} vs {ref[first:first + 5]}")
-    emit("greedy_c2", workload="c2_composite_restarts --rows 100 --cols 100 --mode greedy "
-         "--acq-rounds 50 via cli.run_greedy: 10 000 candidates, d = 2 + 3, Matern-5/2 x "
-         "RBF, 32 pilots, adam 4x150 twice, exact MI seed, 50 rounds",
-         run_ms=out["run_ms"], greedy_select_ms=out["select_ms"],
-         main_path_median_ms=main_ms, rmse_final=rec["final_rmse"],
-         rmse_test_final=rec["final_rmse_test"], launches=launches,
-         first_selected=sel[:10].tolist(),
-         fidelity=f"50/50 equal to the f64 oracle ({out['oracle_s']:.1f} s of host numpy)",
-         card=card)
-    return {"launches": launches}
+        raise AssertionError(f"{tag} launches: {launches}")
+
+    def finish():
+        ref, oracle_s = out["oracle_future"].get()
+        if not np.array_equal(sel, ref):
+            first = int(np.flatnonzero(sel != ref)[0])
+            raise AssertionError(f"{tag} selections differ from the f64 oracle from round "
+                                 f"{first}: {sel[first:first + 5]} vs {ref[first:first + 5]}")
+        emit(tag, workload=workload, run_ms=out["run_ms"],
+             greedy_select_ms=out["select_ms"], candidate_dim=out["X_dim"],
+             main_path_median_ms=main_ms, rmse_final=rec["final_rmse"],
+             rmse_test_final=rec["final_rmse_test"], launches=launches,
+             first_selected=sel[:10].tolist(),
+             fidelity=f"50/50 equal to the f64 oracle ({oracle_s:.1f} s of host numpy "
+             "in a worker process)", card=card)
+
+    return {"launches": launches, "finish": finish}
 
 
 def phase_chol(dev, main_run, episode_run, card: str) -> dict:
@@ -1638,12 +1720,48 @@ def main() -> None:
     episode_4m = phase_episode_4m(dev, smi)
     episode_4m_ens = phase_episode_4m_ens(dev, smi, episode_4m)
     episode_1m_long = phase_episode_1m_long(dev, smi)
-    field_runs = {tag: phase_field_episode(dev, smi, tag, args)
-                  for tag, args in FIELD_EPISODES}
-    greedy_c2 = phase_greedy_c2(dev, oracle, smi, main_run["median_ms"])
-    field_runs.update({tag: phase_field_episode(dev, smi, tag, args)
-                       for tag, args in TRAIT_EPISODES})
-    chol = phase_chol(dev, main_run, episode_run, smi)
+    # the greedy phases' f64 oracles (≈ 150 s of host numpy each) run in
+    # two worker processes while the card goes on; BLAS threads capped so
+    # the workers leave the host loop of the episodes cores
+    blas = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in blas}
+    os.environ.update({k: "3" for k in blas})
+    pool = multiprocessing.get_context("spawn").Pool(processes=2)
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k)
+        else:
+            os.environ[k] = v
+    try:
+        greedy = {
+            "greedy_c2": phase_greedy_c2(
+                dev, oracle, smi, main_run["median_ms"], "greedy_c2", GREEDY_C2_ARGS,
+                "c2_composite_restarts --rows 100 --cols 100 --mode greedy --acq-rounds 50 "
+                "via cli.run_greedy: 10 000 candidates, d = 2 + 3, Matern-5/2 x RBF, 32 "
+                "pilots, adam 4x150 twice, exact MI seed, 50 rounds", pool),
+            "greedy_c2_deep": phase_greedy_c2(
+                dev, oracle, smi, main_run["median_ms"], "greedy_c2_deep",
+                GREEDY_C2_DEEP_ARGS, "greedy_c2 with --deep-hidden 16 --deep-out 4: the "
+                "3 features embedded to 4 by a 3-16-4 tanh MLP trained with the kernel "
+                "(adam 4x150 twice), the composite Gram over d = 2 + 4, exact MI seed, "
+                "50 rounds", pool),
+        }
+        pool.close()
+        field_runs = {tag: phase_field_episode(dev, smi, tag, args)
+                      for tag, args in FIELD_EPISODES}
+        field_runs.update({tag: phase_field_episode(dev, smi, tag, args)
+                           for tag, args in TRAIT_EPISODES + ICM_EPISODES})
+        tag, args = DEEP_EPISODE
+        field_runs[tag] = phase_field_episode(
+            dev, smi, tag, args,
+            fit_s_against=("episode_c2_warp", field_runs["episode_c2_warp"]["fit_s_median"]))
+        chol = phase_chol(dev, main_run, episode_run, smi)
+        for run in greedy.values():
+            run["finish"]()
+        pool.join()
+    finally:
+        pool.terminate()
+        pool.join()
     paths = {"main": main_run["launches"], "episode": episode_run["launches"],
              "lowrank_main": lowrank_run["launches"],
              "episode_100k": episode_100k["launches"],
@@ -1654,7 +1772,7 @@ def main() -> None:
              "episode_4m_ens": episode_4m_ens["launches"],
              "episode_1m_long": episode_1m_long["launches"],
              **{tag: r["launches"] for tag, r in field_runs.items()},
-             "greedy_c2": greedy_c2["launches"],
+             **{tag: r["launches"] for tag, r in greedy.items()},
              "chol_seed": chol.pop("launches")}
 
     def entry(name, source, replaces, stats):

@@ -650,3 +650,109 @@ def test_gram_kernel_at_2_31_outputs(dev):
                       torch.arange(x.shape[0] - 64, x.shape[0])]).to(dev)
     want = G.gram_reference(spec, p, z, x.index_select(0, cols))
     assert (K.index_select(1, cols) - want).abs().max().item() <= 2e-6
+
+
+# ------------------------------------------------ slice 4's models and twins
+
+
+def test_icm_on_card_matches_f64_oracle(dev):
+    """Twin of test_hw_fidelity's ICM case: the joint nT × nT system's f32
+    factor on the card (48 plots × 3 traits, a third of the secondary
+    cells masked) and the per-trait posterior against the f64 oracle."""
+    from algp_tpu_torch.models import coregional as icm
+
+    rng = np.random.default_rng(41)
+    n, T = 48, 3
+    x = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    xs = rng.uniform(0, 10, (30, 2)).astype(np.float32)
+    A = rng.standard_normal((T, 2)) * 0.6
+    B = A @ A.T + np.diag(rng.uniform(0.3, 0.8, T))
+    nv_t = rng.uniform(0.01, 0.05, T)
+    Kx = oracle.gram(x.astype(np.float64), x.astype(np.float64), ls_spatial=2.0)
+    C = np.kron(Kx, B) + np.diag(np.tile(nv_t, n))
+    Y = (np.linalg.cholesky(C + 1e-10 * np.eye(n * T))
+         @ rng.standard_normal(n * T)).reshape(n, T)
+    mask = rng.uniform(size=(n, T)) > 0.3
+    mask[:, 0] = True
+    mask[0] = True
+    spec = KernelSpec("rbf", ds=2)
+    kappa = np.full(T, -12.0)
+    f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    params = icm.ICMParams(
+        kernel=spec.init_params(ls_spatial=2.0, outputscale=1.0, noise=0.1, device=dev),
+        coreg_a=f32(np.linalg.cholesky(B - np.diag(np.exp(kappa)))),
+        log_coreg_kappa=f32(kappa), log_noise_t=f32(0.5 * np.log(nv_t)))
+    Bdev = icm.trait_cov(params).double().cpu().numpy()
+    m_t = torch.tensor(mask, device=dev)
+    got = float(icm.neg_mll_icm(spec, params, f32(x), f32(Y), m_t, min_noise=1e-4, jitter=0.0))
+    assert got == pytest.approx(oracle.icm_nll(Kx, Bdev, Y, nv_t, mask), rel=5e-4, abs=5e-3)
+    post = icm.posterior_icm(spec, params, f32(x), f32(Y), m_t, min_noise=1e-4, jitter=0.0)
+    before = G.LAUNCHES
+    mean, var = icm.predict_icm(spec, params, post, f32(xs))
+    assert G.LAUNCHES == before + 1  # the (n, N) cross-Gram on the kernel
+    Kc = oracle.gram(x.astype(np.float64), xs.astype(np.float64), ls_spatial=2.0)
+    want_m, want_v = oracle.icm_posterior(Kx, Kc, np.ones(len(xs)), Bdev, Y, nv_t, mask)
+    np.testing.assert_allclose(mean.cpu().numpy(), want_m, atol=2e-3)
+    np.testing.assert_allclose(var.cpu().numpy(), want_v, atol=2e-3)
+
+
+def test_deep_kernel_greedy_selections_equal_f64_oracle(dev):
+    """chip_smoke.py phase 14d at a small size: greedy MI of the deep
+    kernel (c2_composite_restarts with a 16-wide hidden layer embedding the
+    3 features to 4) on a 12 × 15 field; the card's 30 selections over the
+    embedded candidates, at the fitted params, equal the oracle's."""
+    import chip_smoke
+
+    out = chip_smoke.greedy_vs_oracle(dev, oracle, [
+        "--preset", "c2_composite_restarts", "--rows", "12", "--cols", "15",
+        "--mode", "greedy", "--acq-rounds", "30", "--num-pilot", "10", "--iters", "60",
+        "--deep-hidden", "16", "--deep-out", "4"])
+    assert out["X_dim"] == 2 + 4 and np.isfinite(out["rec"]["final_rmse"])
+    assert out["launches"]["wtw_column"] >= 30
+    np.testing.assert_array_equal(out["selected"], out["oracle"])
+
+
+def test_sgpr_on_card_matches_f64_oracle(dev):
+    """Twin of test_hw_fidelity's SGPR case: the −ELBO and the predictive
+    marginals on the card against the dense f64 Titsias reference (200
+    points, every third inducing), at the reference test's tolerances."""
+    from algp_tpu_torch.models import sparse_gp as sgp
+
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0, 12, (200, 2))
+    y = rng.standard_normal(200)
+    spec = KernelSpec("rbf", ds=2)
+    params = spec.init_params(ls_spatial=2.0, outputscale=1.5, noise=0.2, device=dev)
+    zidx = np.arange(0, 200, 3)
+    K = oracle.gram(x, x, ls_spatial=2.0, outputscale=1.5)
+    ref_nelbo, m_ref, v_ref = oracle.sgpr_reference(K, zidx, y, max(0.2**2, 1e-6))
+    xd = torch.tensor(x, dtype=torch.float32, device=dev)
+    yd = torch.tensor(y, dtype=torch.float32, device=dev)
+    got = float(sgp.neg_elbo(spec, params, xd, yd, xd[zidx]))
+    np.testing.assert_allclose(got, ref_nelbo, rtol=2e-3)
+    post = sgp.posterior_sparse(spec, params, xd, yd, xd[zidx])
+    mean, var = sgp.predict_sparse(spec, params, post, xd)
+    np.testing.assert_allclose(mean.cpu().numpy(), m_ref, atol=2.5e-2)
+    np.testing.assert_allclose(var.cpu().numpy(), v_ref, atol=2.5e-2)
+
+
+def test_dense_inducing_design_seed_is_finite(dev):
+    """Twin of test_hw_fidelity's dense-design case: 220 k-center points
+    of a 40 × 40 grid at lengthscale 6 (cond K_zz ≈ 2.5e7) through both
+    low-rank seeds and the FITC truth; every output finite on the card."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+    from algp_tpu_torch.config import FieldConfig
+    from algp_tpu_torch.field import FieldEnv
+
+    r, c = np.divmod(np.arange(1600), 40)
+    x = torch.tensor(np.stack([c, r], 1), dtype=torch.float32, device=dev)
+    spec = KernelSpec("rbf", ds=2)
+    params = spec.init_params(ls_spatial=6.0, outputscale=1.0, noise=0.1, device=dev)
+    z = x[lr.kcenter_indices(x, 220)]
+    seed = lr.lowrank_seed_with_z(spec, params, x, z)
+    assert torch.isfinite(seed.VT).all() and torch.isfinite(seed.pdiag).all()
+    fac = lr.lowrank_factors_seed(spec, params, x, z)
+    assert torch.isfinite(fac.Lzz).all() and torch.isfinite(fac.LB).all()
+    env = FieldEnv(FieldConfig(num_rows=40, num_cols=40, true_ls_spatial=6.0,
+                               synth_inducing=220, seed=3), spec, device=dev)
+    assert np.isfinite(env.f).all()

@@ -133,16 +133,24 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
         FieldEnv(cfg.field, cfg.kernel, device="cuda")
 
 
+_DEEP = dict(kernel=KernelSpec("matern32", ds=2, df=3), deep=tc.MLPSpec(hidden=(4,), out=2))
+
+
 @pytest.mark.parametrize("change", [
-    dict(deep=object(), acquisition=tc.AcquisitionConfig(strategy="mi",
-                                                         num_inducing=32)),
-    dict(deep=object()),
+    dict(_DEEP, episode=tc.EpisodeConfig(num_pilot=8, budget=24.0, lagged_refit=True)),
+    dict(_DEEP, fit=tc.FitConfig(sparse_threshold=300, sparse_inducing=256)),
 ])
 def test_unported_branches_raise(change):
+    """The deep kernel is ported; the combinations the reference refuses
+    raise its ValueError at the Agent: with lagged refits and with SGPR
+    refits (a field without features: test_torch_episode_deep.py)."""
     _, cfg = _configs("mi")
+    cfg = dataclasses.replace(cfg, **change)
+    cfg = dataclasses.replace(cfg, field=dataclasses.replace(
+        cfg.field, num_features=cfg.kernel.df))
     env = FieldEnv(cfg.field, cfg.kernel, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Agent(env, dataclasses.replace(cfg, **change))
+    with pytest.raises(ValueError, match="deep"):
+        Agent(env, cfg)
 
 
 @pytest.mark.parametrize("strategy,num_inducing", [("entropy", None), ("mi", 32)])

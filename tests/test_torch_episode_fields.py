@@ -169,17 +169,19 @@ def test_resume_with_a_trait_mismatch_raises(tmp_path):
             agent.run(resume_from=ckpt.load(path, "cpu"))
 
 
-def test_icm_family_raises_at_the_agent_and_the_cli():
-    """multi_fit='icm' (not ported) raises when the Agent is built on a
-    multi-trait field and at the CLI's flag check, before any episode."""
+def test_icm_family_raises_at_the_agent_and_the_cli(capsys):
+    """Since the ICM is ported only an unknown family raises (ValueError at
+    the Agent); multi_fit='icm' builds the Agent on a multi-trait field and
+    runs through the CLI to per-trait RMSEs."""
     _, cfg = _trait_configs(1.0)
     cfg = dataclasses.replace(cfg, fit=dataclasses.replace(cfg.fit, multi_fit="icm"))
     env = FieldEnv(cfg.field, cfg.kernel, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Agent(env, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--preset", "c5_episode", "--rows", "4", "--cols", "5",
-                  "--num-traits", "2", "--multi-fit", "icm", "--device", "cpu"])
+    assert Agent(env, cfg)._multi_trait
+    assert cli.main(["--preset", "c5_episode", "--rows", "4", "--cols", "5",
+                     "--budget", "6", "--num-pilot", "6", "--iters", "5",
+                     "--num-traits", "2", "--multi-fit", "icm", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(rec["trait_rmse_test"]) == 2 and np.isfinite(rec["trait_rmse_test"]).all()
     bogus = dataclasses.replace(cfg, fit=dataclasses.replace(cfg.fit, multi_fit="bogus"))
     with pytest.raises(ValueError, match="multi_fit"):
         Agent(env, bogus)

@@ -82,9 +82,10 @@ def test_trait_with_too_few_observations_warns():
     assert M.shape == (48, 3) and np.isfinite(M).all()
 
 
-@pytest.mark.parametrize("name,error", [("icm", NotImplementedError),
-                                        ("bogus", ValueError)])
+@pytest.mark.parametrize("name,error", [("icm", TypeError), ("bogus", ValueError)])
 def test_unported_or_unknown_family_raises(name, error):
+    """An unknown family raises ValueError; the (ported) ICM family started
+    from the independent family's KernelParams raises TypeError."""
     _, env, idx, Y, ns = _case(1.0)
     with pytest.raises(error, match="multi_fit"):
         tmf.multitrait_mean_fields(TKernelSpec(*SPEC), TFitConfig(multi_fit=name, **FIT),
