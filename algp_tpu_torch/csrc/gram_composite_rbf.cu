@@ -1,0 +1,9 @@
+// The composite Gram kernel's instances whose spatial kind is rbf
+// (gram.cuh), in a source of their own so that nvcc builds the three
+// spatial kinds in parallel; gram.cu's `algp_gram` dispatches here.
+
+#include "gram.cuh"
+
+ALGP_COMPOSITE_LAUNCH(algp_gram_composite_rbf) {
+  return launch_composite_fk<kRbf>(fk, x1, x2, inv, scale, out, n1, n2, ds, df, st);
+}

@@ -5,7 +5,8 @@ per source, all started together, and linked into one shared library
 with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<kernel>.cu   # each
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0 \
+         -c -o <obj> csrc/<kernel>.cu                                 # each
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library goes to `build/algp_tpu_torch/<hash>/` at the repository
@@ -38,6 +39,10 @@ NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # register / shared-memory / spill report, kept in build.log
     "-Xptxas", "-v",
+    # the optimizer's passes on all the host's cores (the Gram kernel's
+    # composite sources hold ≈ 90 template instances each); the SASS is
+    # the same
+    "--split-compile=0",
 )
 
 _P = ctypes.c_void_p
@@ -45,8 +50,8 @@ _I = ctypes.c_int
 
 # C signature of every exported function: (restype, argtypes)
 _SIGNATURES = {
-    # x1s, x2s, x1f, x2f, scale, out, n1, n2, ds, df, sk, fk, stream
-    "algp_gram": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # x1, x2, inv (composite) or null, scale, out, n1, n2, ds, df, sk, fk, stream
+    "algp_gram": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # W, j, partial, out, n, stream
     "algp_wtw_column": (_I, [_P, _P, _P, _P, _I, _P]),
     "algp_wtw_splits": (_I, [_I]),

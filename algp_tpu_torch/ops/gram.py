@@ -3,10 +3,12 @@
 
 `gram_kernel` launches the kernel for CUDA tensors and runs the plain
 version `gram_reference` (= ops.kernels.gram) for CPU tensors, and for
-nothing else: a CUDA input the kernel does not take raises.  As in the
-reference, the ARD lengthscales are folded into the inputs before the
-kernel runs, and the outputscale reaches it as a one-element device
-tensor, so nothing here waits for the device.
+nothing else: a CUDA input the kernel does not take raises.  For a
+spatial-only kernel the ARD lengthscales are folded into the inputs
+before the kernel runs, as in the reference; a composite kernel takes the
+raw rows and the inverse lengthscales and scales them itself (the same
+IEEE products).  The outputscale reaches the kernel as a one-element
+device tensor, so nothing here waits for the device.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from algp_tpu_torch.ops.kernels import gram as gram_reference
 
 #: kernel launches so far (a run can show that it went through the kernel)
 LAUNCHES = 0
+#: of those, the composite template's (a feature segment, spec.df > 0)
+COMPOSITE_LAUNCHES = 0
 
 _MAX_DIM = 64  # coordinates per segment the kernel takes
 
@@ -63,7 +67,7 @@ def gram_kernel(
 ) -> torch.Tensor:
     """Cross-covariance K(X1, X2), (n1, n2) f32: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    global LAUNCHES
+    global LAUNCHES, COMPOSITE_LAUNCHES
     if x1.device.type == "cpu" and x2.device.type == "cpu":
         return gram_reference(spec, params, x1, x2)
     _check(spec, params, x1, x2)
@@ -73,22 +77,25 @@ def gram_kernel(
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
     if n1 == 0 or n2 == 0:
         return out
-    x1s, x2s = _scaled(x1[:, : spec.ds], x2[:, : spec.ds], params.log_ls_spatial)
     if spec.df:
-        x1f, x2f = _scaled(x1[:, spec.ds :], x2[:, spec.ds :], params.log_ls_feature)
+        # the composite scales its rows in the kernel
+        x1, x2 = x1.contiguous(), x2.contiguous()
+        inv = torch.exp(-torch.cat((params.log_ls_spatial, params.log_ls_feature)))
         fk = KERNEL_KINDS.index(spec.feature_kind)
     else:
-        x1f = x2f = None
-        fk = -1
-    scale = torch.exp(params.log_outputscale).reshape(1).contiguous()
+        x1, x2 = _scaled(x1, x2, params.log_ls_spatial)
+        inv, fk = None, -1
+    scale = torch.exp(params.log_outputscale).reshape(1)
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())
     code = _cuda.library().algp_gram(
-        ptr(x1s), ptr(x2s), ptr(x1f), ptr(x2f), ptr(scale), ptr(out),
+        ptr(x1), ptr(x2), ptr(inv), ptr(scale), ptr(out),
         n1, n2, spec.ds, spec.df, KERNEL_KINDS.index(spec.spatial_kind), fk,
-        _cuda.stream_ptr(x1.device),
+        _cuda.stream_ptr(out.device),
     )
     _cuda.check(code, "gram kernel launch")
     LAUNCHES += 1
+    if fk >= 0:
+        COMPOSITE_LAUNCHES += 1
     return out
 
 

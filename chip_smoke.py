@@ -8,13 +8,17 @@ script exits non-zero and never prints the final line:
 
   1. device   — CUDA present; torch, CUDA, nvcc versions; card name and
                 power limit (nvidia-smi)
-  2. build    — nvcc builds csrc/*.cu from the checkout (seconds, ptxas), and
-                beside them the Gram kernel's previous, shared-tile design
-                (tools/gram_variants.cu); the SASS instructions per output
-                of the Gram kernel's hot loop (cuobjdump)
+  2. build    — nvcc builds csrc/*.cu from the checkout (seconds, ptxas
+                by source), and beside them the Gram kernel's earlier
+                designs (tools/gram_variants.cu); the SASS instructions and
+                global loads per output of the Gram kernel's hot loops
+                (cuobjdump); fails if a composite instance the paths run
+                loads from global memory in its hot loop
   3. gram     — the Gram kernel vs its plain PyTorch version on the card:
                 bitwise for RBF and Matérn 3/2, within 2e-6·s² for Matérn
-                5/2 and a composite, at ragged shapes (n2 % 4 = 1, 2, 3 too);
+                5/2 and the composites (at the template's edges: df = 1, 3,
+                4, 5, 8 and the runtime 9, ds = 1, 3 and the runtime 4), at
+                ragged shapes (n2 % 4 = 1, 2, 3 too);
                 then bitwise and timed in turns against the plain version
                 and the shared-tile design at the paths' shapes: RBF at the main
                 path's 10 240², Matérn 3/2 at the low-rank seed's
@@ -22,12 +26,12 @@ script exits non-zero and never prints the final line:
                 and 512 × 4 194 304 (2³¹ outputs), and the conditioning
                 pass's 352 × 1 048 576, 640 × 1 048 576 and 224 × 4 194 304;
                 and the composite template (Matérn 5/2 × RBF) within
-                2e-6·s² and timed in turns against the plain version at
-                the feature paths' shapes: 1 000² at d = 2 + 3 (c2, c10),
-                1 000² at d = 2 + 1 (the warped truth), 10 240² at d = 2 + 3
-                (phase 12d's seed), and the deep kernel's embedded width
-                d = 2 + 4 at 1 000² (14c's plan cross-Gram) and 10 240²
-                (14d's seed)
+                2e-6·s² and timed in turns against the earlier composite
+                design and the plain version at the feature paths' shapes:
+                1 000² at d = 2 + 3 (c2, c10), 1 000² at d = 2 + 1 (the
+                warped truth), 10 240² at d = 2 + 3 (phase 12d's seed), and
+                the deep kernel's embedded width d = 2 + 4 at 1 000² (14c's
+                plan cross-Gram) and 10 240² (14d's seed)
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
                 and a ragged N; bitwise repeatability; times per call
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
@@ -137,6 +141,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -202,6 +207,10 @@ GREEDY_C2_DEEP_ARGS = GREEDY_C2_ARGS + DEEP_ARGS
 # the deep kernel's embedding
 COMPOSITE_GRAM_CASES = ((1000, (25, 40), 3), (1000, (25, 40), 1), (10240, (100, 100), 3),
                         (1000, (25, 40), 4), (10240, (100, 100), 4))
+# the composite's (ds, df) at its template edges, checked at ragged shapes:
+# the exact feature widths 1-4, the 8-wide bucket (5, 8), the spatial
+# widths 1 and 3, and the runtime widths (df = 9, ds = 4)
+COMPOSITE_EDGES = ((2, 1), (2, 3), (2, 4), (2, 5), (2, 8), (1, 2), (3, 8), (2, 9), (4, 3))
 # the card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and FP32 flop/s outside the tensor cores
 HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
@@ -278,24 +287,53 @@ def phase_build():
         _cuda.library()
         secs = time.perf_counter() - t0
         variants = variants.result()
-    ptxas = [l.split("ptxas info    : ")[-1].strip() for l in _cuda.build_log().splitlines()
-             if "registers" in l or "spill" in l or "Compiling entry" in l]
     emit("build", seconds=round(secs, 3), variants_seconds=round(time.perf_counter() - t0, 3),
-         ptxas=ptxas)
+         **ptxas_summary(_cuda.build_log(), {**tool.KERNEL_PATTERNS,
+                                             **tool.COMPOSITE_PATTERNS}))
     # instructions of the innermost storing loop over the outputs one trip
-    # writes; the shared-tile design's stores are straight-line code (None)
+    # writes, and its global loads; the shared-tile design's stores are
+    # straight-line code (None); the earlier composite's hot loop holds its
+    # two runtime coordinate loops, each counted once
     sass = tool.sass_per_output(_cuda.build(), {**tool.KERNEL_PATTERNS,
-                                                **COMPOSITE_SASS_PATTERN})
+                                                **tool.COMPOSITE_PATTERNS})
     sass.update(tool.sass_per_output(variants, {
-        "shared_tile_matern32": "shared_tile_kernelILi1E", "shared_tile_rbf": "shared_tile_kernelILi0E"}))
+        "shared_tile_matern32": "shared_tile_kernelILi1E", "shared_tile_rbf": "shared_tile_kernelILi0E",
+        **tool.OLD_COMPOSITE_PATTERN}))
+    for tag in tool.COMPOSITE_PATTERNS:
+        if not sass[tag] or sass[tag].get("global_loads", 1):
+            raise AssertionError(f"composite hot loop {tag}: not found or loads from global "
+                                 f"memory: {sass[tag]}")
     emit("gram_sass", per_output={k: v and v.get("per_output") for k, v in sass.items()},
-         loops=sass)
+         global_loads_per_output={k: v and v.get("global_loads_per_output")
+                                  for k, v in sass.items()}, loops=sass)
     return tool, tool.load(variants)
 
 
-# gram_kernel<SK = Matérn 5/2, FK = RBF, DS = 0 (read at run time), VEC>:
-# its hot loop holds the two runtime coordinate loops, each counted once
-COMPOSITE_SASS_PATTERN = {"composite_matern52_rbf": "gram_kernelILi2ELi0ELi0ELb1E"}
+def ptxas_summary(log: str, patterns: dict) -> dict:
+    """The ptxas report by source: kernels compiled, registers (least and
+    most), spilled bytes, and the report of each kernel instance named in
+    `patterns` (tag → a piece of its mangled name)."""
+    out, cur, reports, name = {}, None, {}, None
+    for line in log.splitlines():
+        if line.startswith("$ ") and " -c " in line:
+            cur = out.setdefault(Path(line.split()[-1]).name,
+                                 {"kernels": 0, "registers": [], "spill_bytes": 0})
+        elif cur is None:
+            continue
+        elif "Compiling entry function" in line:
+            cur["kernels"] += 1
+            name = line.split("'")[1]
+        elif "Used" in line and "registers" in line:
+            cur["registers"].append(int(line.split("Used ")[1].split()[0]))
+            reports[name] = line.split("ptxas info    : ")[-1].strip()
+        else:
+            cur["spill_bytes"] += sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    for v in out.values():
+        regs = v.pop("registers")
+        v["registers"] = [min(regs), max(regs)] if regs else None
+    return {"ptxas": out, "instances": {
+        tag: next((r for k, r in reports.items() if p in k), None)
+        for tag, p in patterns.items()}}
 
 
 def main_grid(dev):
@@ -338,12 +376,14 @@ def phase_gram(dev, tool, variants) -> dict:
             raise AssertionError(f"gram kernel vs plain at {tuple(K.shape)} ({spec}): "
                                  f"{err}{' (not bitwise)' if exact else ''}")
         worst = max(worst, err)
-        return {"spec": f"{spec.spatial_kind}x{spec.feature_kind if spec.df else '-'}",
+        return {"spec": f"{spec.spatial_kind}x{spec.feature_kind if spec.df else '-'}"
+                        f"_d{spec.ds}+{spec.df}",
                 "shape": list(K.shape), "max_abs_err": err,
                 "tol": "bitwise" if exact else "2e-6*s2"}
 
     for spec in (KernelSpec("rbf", ds=2), KernelSpec("matern32", ds=2),
-                 KernelSpec("matern52", ds=2), KernelSpec("matern52", "rbf", ds=2, df=3)):
+                 KernelSpec("matern52", ds=2), KernelSpec("rbf", "matern32", ds=1, df=4),
+                 *(KernelSpec("matern52", "rbf", ds=ds, df=df) for ds, df in COMPOSITE_EDGES)):
         p = spec.init_params(ls_spatial=2.5, ls_feature=1.3, outputscale=1.7, device=dev)
 
         def rand(n):
@@ -408,7 +448,7 @@ def phase_gram(dev, tool, variants) -> dict:
             torch.cuda.empty_cache()
         del xg
     torch.cuda.empty_cache()
-    composite = composite_gram_cases(dev, check, results)
+    composite = composite_gram_cases(dev, check, results, tool, variants)
     emit("gram", cases=results, tol="bitwise for rbf and matern32; 2e-6*s2 otherwise",
          **{k: main[k] for k in ("ms", "shared_tile_ms", "plain_ms", "bound_ms")})
     keys = ("ms", "shared_tile_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -418,13 +458,14 @@ def phase_gram(dev, tool, variants) -> dict:
             **{k: {q: v[q] for q in keys} for k, v in at.items()}, **composite}
 
 
-def composite_gram_cases(dev, check, results) -> dict:
+def composite_gram_cases(dev, check, results, tool, variants) -> dict:
     """The composite template (Matérn 5/2 × RBF) at the feature paths'
     shapes: [grid | N(0, 1) features] against itself (the truth's Gram),
     the 10 240 case the 100 × 100 grid padded as `pad_candidates` pads it
-    (the MI seed's).  Held within
-    2e-6·s² of the plain version by `check`, then kernel and plain timed in
-    turns (kernel, plain, plain, kernel)."""
+    (the MI seed's).  Held within 2e-6·s² of the plain version by `check`,
+    then the kernel, the earlier composite design (wrapped as its wrapper
+    was: tools/gram_variants.cu) and plain timed in turns (kernel, earlier,
+    plain, plain, earlier, kernel)."""
     from algp_tpu_torch.acquisition import pad_candidates
     from algp_tpu_torch.ops import gram as G
     from algp_tpu_torch.ops.kernels import KernelSpec
@@ -442,11 +483,15 @@ def composite_gram_cases(dev, check, results) -> dict:
         if x.shape[0] != n:
             raise AssertionError(f"composite case: {x.shape[0]} points, not {n}")
         case = check(spec, x, x, p)
+        case["old_design_bitwise_equal"] = bool(torch.equal(
+            G.gram_kernel(spec, p, x, x), tool.old_composite(variants, spec, p, x, x)))
         runs = {"ms": lambda: G.gram_kernel(spec, p, x, x),
+                "old_design_ms": lambda: tool.old_composite(variants, spec, p, x, x),
                 "plain_ms": lambda: G.gram_reference(spec, p, x, x)}
         turns = {k: [] for k in runs}
-        for k in ("ms", "plain_ms", "plain_ms", "ms"):
-            turns[k].append(cuda_ms(runs[k], 20 if k == "ms" else 3))
+        order = list(runs)
+        for k in order + order[::-1]:
+            turns[k].append(cuda_ms(runs[k], 3 if k == "plain_ms" else 20))
         case.update({k: float(np.mean(v)) for k, v in turns.items()})
         # each output written once, inputs read once; per output 3 operations
         # a coordinate (difference, square, sum), the Matérn 5/2 form (clamp,
@@ -458,7 +503,8 @@ def composite_gram_cases(dev, check, results) -> dict:
         case["share_of_bound"] = case["bound_ms"] / case["ms"]
         results.append(case)
         out[f"composite_{n}x{n}_d{spec.dim}"] = {
-            q: case[q] for q in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            q: case[q] for q in ("ms", "old_design_ms", "plain_ms", "bound_ms", "bound_by",
+                                 "max_abs_err")}
         del x
         torch.cuda.empty_cache()
     return out
@@ -609,7 +655,7 @@ def phase_main(dev, oracle, card: str) -> dict:
         t0 = time.perf_counter()
         fit_res, nll, sel = episode(rep)
         dt = (time.perf_counter() - t0) * 1e3
-        per_episode.append(tuple(v - c0[k] for k, v in _counts().items()))
+        per_episode.append({k: v - c0[k] for k, v in _counts().items()})
         if rep:  # rep 0 is the warm-up
             times.append(dt)
         if not np.isfinite(nll):
@@ -619,9 +665,9 @@ def phase_main(dev, oracle, card: str) -> dict:
     launches = _counts()
     # Gram launches: the pilots' cross-Gram and the MI seed; the seed's
     # factor is the library's
-    for g, u, c in per_episode:
-        if g != 2 or u != rounds or c != 0:
-            raise AssertionError(f"episode launches gram {g}, wtw {u}, cholesky {c}")
+    for run in per_episode:
+        if (run["gram"], run["wtw_column"], run["cholesky"]) != (2, rounds, 0):
+            raise AssertionError(f"episode launches {run}")
 
     # the fitted NLL agrees with the f64 oracle's at the fitted params
     p = fit_res.params
@@ -708,7 +754,8 @@ def _counts() -> dict:
     from algp_tpu_torch.ops import gram as G
     from algp_tpu_torch.ops import updates as U
 
-    return {"gram": G.LAUNCHES, "wtw_column": U.LAUNCHES, "cholesky": C.LAUNCHES}
+    return {"gram": G.LAUNCHES, "wtw_column": U.LAUNCHES, "cholesky": C.LAUNCHES,
+            "gram_composite": G.COMPOSITE_LAUNCHES}
 
 
 def _zero_counts() -> None:
@@ -716,7 +763,7 @@ def _zero_counts() -> None:
     from algp_tpu_torch.ops import gram as G
     from algp_tpu_torch.ops import updates as U
 
-    G.LAUNCHES = U.LAUNCHES = C.LAUNCHES = 0
+    G.LAUNCHES = G.COMPOSITE_LAUNCHES = U.LAUNCHES = C.LAUNCHES = 0
 
 
 def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> dict:
@@ -1780,6 +1827,9 @@ def main() -> None:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, **stats}
+
+    # the Gram launches of the composite template, by path (of launches_by_path)
+    gram["composite_launches_by_path"] = {k: v["gram_composite"] for k, v in paths.items()}
 
     emit("total", seconds=time.perf_counter() - t_start, card=smi)
     print(json.dumps({"kernels": [

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the Gram kernel (`algp_tpu_torch/csrc/gram.cu`) against its design
 variants (`tools/gram_variants.cu`) on one NVIDIA GPU, and count the SASS
-instructions each spends per output.
+instructions and global loads each spends per output.
 
     python3 tools/gram_profile.py [--out FILE]
 
@@ -19,11 +19,19 @@ and 512 × 2²², the conditioning pass's 352 × 2²⁰, 640 × 2²⁰ and
   of the same output (the card's write stream with no arithmetic);
 - the bytes bound (each output written once, inputs read once).
 
+Then the composite template (Matérn 5/2 × RBF) at the feature paths' 10 240²
+(greedy c2's seed, d = 2 + 3; the deep kernel's, d = 2 + 4) and 1 000² (the
+truths, d = 2 + 3): the kernel through its wrapper, at tile heights 8, 16
+and 32, and the earlier composite design (prescaled segments, every
+coordinate read per output), launched alone and wrapped as its wrapper was
+(slices, scaling, launch); every variant bitwise against the kernel.
+
 Then one `sass` line: per kernel instance, the instructions of its hot
 loop (the innermost loop that stores) over the outputs one trip writes,
-from `cuobjdump -sass`.  `chip_smoke.py` loads `sass_per_output` from
-this file.  The variants' library builds under `build/gram_profile/<hash>/`,
-with the SASS of the kernels counted in `gram_variants.sass` beside it.
+and its global loads over the same outputs, from `cuobjdump -sass`.
+`chip_smoke.py` loads `sass_per_output` from this file.  The variants'
+library builds under `build/gram_profile/<hash>/`, with the SASS of the
+kernels counted in `gram_variants.sass` beside it.
 """
 
 from __future__ import annotations
@@ -103,6 +111,8 @@ def load(lib_path: Path) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.gram_variant.restype = I
     lib.gram_variant.argtypes = [I, P, P, P, P, I, I, I, I, I, I, P]
+    lib.gram_composite_variant.restype = I
+    lib.gram_composite_variant.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, P]
     return lib
 
 
@@ -125,6 +135,37 @@ def shared_tile(lib, spec: KernelSpec, params, x1, x2):
     out = torch.empty((x1.shape[0], x2.shape[0]), dtype=torch.float32, device=x1.device)
     launch(lib, 1, spec.spatial_kind, (x1 * inv).contiguous(), (x2 * inv).contiguous(),
            torch.exp(params.log_outputscale).reshape(1), out)
+    return out
+
+
+def composite_rows(lib, spec: KernelSpec, params, x1, x2, out, rows: int) -> None:
+    """The composite kernel (Matérn 5/2 × RBF, ds = 2) at a tile height of
+    `rows`, on unscaled rows, into `out`."""
+    inv = torch.exp(-torch.cat((params.log_ls_spatial, params.log_ls_feature)))
+    code = lib.gram_composite_variant(
+        0, x1.data_ptr(), x2.data_ptr(), None, None, inv.data_ptr(),
+        torch.exp(params.log_outputscale).reshape(1).data_ptr(), out.data_ptr(),
+        x1.shape[0], x2.shape[0], spec.ds, spec.df, rows, _cuda.stream_ptr(out.device))
+    if code:
+        raise RuntimeError(f"composite kernel at {rows} rows: CUDA error {code}")
+
+
+def old_composite(lib, spec: KernelSpec, params, x1, x2, out=None):
+    """K(x1, x2) by the earlier composite design (Matérn 5/2 × RBF), wrapped
+    as its wrapper was: the two segments sliced and scaled in torch, the
+    output allocated (unless given), then the launch."""
+    ds = spec.ds
+    inv_s, inv_f = torch.exp(-params.log_ls_spatial), torch.exp(-params.log_ls_feature)
+    x1s, x2s = (x1[:, :ds] * inv_s).contiguous(), (x2[:, :ds] * inv_s).contiguous()
+    x1f, x2f = (x1[:, ds:] * inv_f).contiguous(), (x2[:, ds:] * inv_f).contiguous()
+    if out is None:
+        out = torch.empty((x1.shape[0], x2.shape[0]), dtype=torch.float32, device=x1.device)
+    code = lib.gram_composite_variant(
+        1, x1s.data_ptr(), x2s.data_ptr(), x1f.data_ptr(), x2f.data_ptr(), None,
+        torch.exp(params.log_outputscale).reshape(1).data_ptr(), out.data_ptr(),
+        x1.shape[0], x2.shape[0], ds, spec.df, 0, _cuda.stream_ptr(out.device))
+    if code:
+        raise RuntimeError(f"earlier composite design: CUDA error {code}")
     return out
 
 
@@ -154,10 +195,11 @@ def _target(ins: str):
 def hot_loop(instr: list[tuple[int, str]]) -> dict | None:
     """The innermost loop holding a global store: its instructions (NOPs
     left out), those a trip issues when every forward branch over a CALL
-    is taken (IEEE sqrtf's slow path for denormal, infinite or NaN inputs,
-    which r² ≥ 1e-20 never takes), and the outputs one trip writes (a .128
-    store 4, a .64 store 2, else 1).  None when no loop stores (the
-    stores are straight-line code)."""
+    is taken (the slow paths of IEEE sqrtf and ÷ for denormal, infinite or
+    NaN operands, which r² ≥ 1e-20 never takes), the outputs one trip
+    writes (a .128 store 4, a .64 store 2, else 1), and its global and
+    shared loads.  None when no loop stores (the stores are straight-line
+    code)."""
     index = {a: i for i, (a, _) in enumerate(instr)}
     best = None
     for end, (addr, ins) in enumerate(instr):
@@ -177,8 +219,11 @@ def hot_loop(instr: list[tuple[int, str]]) -> dict | None:
                 if any("CALL" in x for x in over):
                     skipped += len(over)
         outs = sum(4 if ".128" in i else 2 if ".64" in i else 1 for i in stores)
+        ldg = sum(bool(re.search(r"\bLDG\b", i)) for _, i in body)
+        lds = sum(bool(re.search(r"\bLDS\b", i)) for _, i in body)
         best = (len(body), {"instructions": n, "issued": n - skipped, "outputs": outs,
-                            "per_output": (n - skipped) / outs})
+                            "per_output": (n - skipped) / outs, "global_loads": ldg,
+                            "global_loads_per_output": ldg / outs, "shared_loads": lds})
     return None if best is None else best[1]
 
 
@@ -193,12 +238,27 @@ def sass_per_output(lib: Path, patterns: dict[str, str]) -> dict:
     return out
 
 
-# the mangled template arguments of the kernel instances the paths run:
-# gram_kernel<SK, FK = -1, DS = 2, VEC = true>
+# the mangled names (with their length prefix) of the kernel instances the
+# paths run: gram_kernel<SK, DS = 2, VEC = true> and, Matérn 5/2 × RBF,
+# composite_kernel<SK = 2, FK = 0, DS = 2, DF, VEC = true> at the feature
+# widths of the warped truth (1), c2 and c10 (3) and the deep kernel (4)
 KERNEL_PATTERNS = {
-    "matern32": "gram_kernelILi1ELin1ELi2ELb1E",
-    "rbf": "gram_kernelILi0ELin1ELi2ELb1E",
+    "matern32": "11gram_kernelILi1ELi2ELb1E",
+    "rbf": "11gram_kernelILi0ELi2ELb1E",
 }
+COMPOSITE_PATTERNS = {
+    f"composite_matern52_rbf_d2+{df}": f"16composite_kernelILi2ELi0ELi2ELi{df}ELb1E"
+    for df in (1, 3, 4)
+}
+# the earlier composite design (tools/gram_variants.cu), Matérn 5/2 × RBF
+OLD_COMPOSITE_PATTERN = {"old_composite_matern52_rbf": "20old_composite_kernelILi2ELi0ELb1E"}
+# (name, side of the square, feature width); x: a 128 × 80 or 25 × 40 grid
+# beside N(0, 1) features
+COMPOSITE_SHAPES = (
+    ("c2_seed_10240_d2+3", 10240, 3),
+    ("deep_seed_10240_d2+4", 10240, 4),
+    ("c2_truth_1000_d2+3", 1000, 3),
+)
 
 
 def inputs(kind, n1, side, ls, dev):
@@ -213,6 +273,20 @@ def inputs(kind, n1, side, ls, dev):
     p = spec.init_params(ls_spatial=ls, outputscale=1.0, device=dev)
     inv = torch.exp(-p.log_ls_spatial)
     return spec, p, x1, x2, (x1 * inv).contiguous(), (x2 * inv).contiguous()
+
+
+def composite_inputs(n: int, df: int, dev):
+    """Matérn 5/2 × RBF at ls 4 (spatial) and 1 (features), s² = 1, and n
+    points: a 25 × 40 (n = 1 000) or 128 × 80 grid beside N(0, 1) features
+    from a seed."""
+    cols = 40 if n == 1000 else 128
+    r, c = np.divmod(np.arange(n), cols)
+    f = np.random.default_rng(12).standard_normal((n, df))
+    x = torch.tensor(np.concatenate([np.stack([c, r], 1), f], 1), dtype=torch.float32,
+                     device=dev)
+    spec = KernelSpec("matern52", "rbf", ds=2, df=df)
+    return spec, spec.init_params(ls_spatial=4.0, ls_feature=1.0, outputscale=1.0,
+                                  device=dev), x
 
 
 def main(argv=None) -> None:
@@ -283,13 +357,45 @@ def main(argv=None) -> None:
         del out, x1, x2, x1s, x2s
         torch.cuda.empty_cache()
 
-    patterns = dict(KERNEL_PATTERNS)
+    for name, n, df in COMPOSITE_SHAPES:
+        spec, p, x = composite_inputs(n, df, dev)
+        ref = G.gram_kernel(spec, p, x, x)
+        plain_err = float((ref - G.gram_reference(spec, p, x, x)).abs().max())
+        out = torch.empty_like(ref)
+        runs = {"kernel": lambda: G.gram_kernel(spec, p, x, x)}
+        for rows in (8, 16, 32):
+            runs[f"rows_{rows}"] = lambda rows=rows: composite_rows(lib, spec, p, x, x, out, rows)
+        runs["old_design"] = lambda: old_composite(lib, spec, p, x, x, out)
+        runs["old_design_wrapped"] = lambda: old_composite(lib, spec, p, x, x)
+        runs["fill_"] = lambda: out.fill_(1.0)
+        equal = {}
+        for k in ("rows_8", "rows_16", "rows_32", "old_design"):
+            out.fill_(float("nan"))
+            runs[k]()
+            equal[k] = bool(torch.equal(out, ref))
+        del ref
+        ms = {k: [] for k in runs}
+        order = list(runs)
+        for turn in (order, order[::-1]):
+            for k in turn:
+                ms[k].append(cuda_ms(runs[k], args.reps if n > 1000 else 20))
+        bound_ms = 4 * (n * n + 2 * spec.dim * n) / HBM_BPS * 1e3
+        emit({"shape": name, "kind": "matern52 x rbf", "n1": n, "n2": n, "d": spec.dim,
+              "bound_ms": bound_ms, "kernel_vs_plain_max_abs_err": plain_err,
+              "tol": "2e-6*s2", "bitwise_equal_to_kernel": equal,
+              "ms": {k: float(np.mean(v)) for k, v in ms.items()}, "ms_turns": ms,
+              "share_of_bound": {k: bound_ms / float(np.mean(v)) for k, v in ms.items()},
+              "card": smi})
+        del out, x
+        torch.cuda.empty_cache()
+
+    patterns = {**KERNEL_PATTERNS, **COMPOSITE_PATTERNS, **OLD_COMPOSITE_PATTERN}
     patterns.update({f"shared_tile_{k}": f"shared_tile_kernelILi{i}E" for k, i in
                      (("matern32", 1), ("rbf", 0))})
     emit({"sass": sass_per_output(lib_path, patterns),
           "note": "hot loop = innermost loop holding a global store; issued = its "
-                  "instructions less sqrtf's slow path; no loop: the stores are "
-                  "straight-line code"})
+                  "instructions less the slow paths of sqrtf and division; no loop: "
+                  "the stores are straight-line code"})
     if args.out:
         with open(args.out, "a") as f:
             f.write("\n".join(lines) + "\n")

@@ -1,8 +1,10 @@
 // Design variants of the Gram kernel (algp_tpu_torch/csrc/gram.cu), for
-// tools/gram_profile.py only: the library never runs them.  Each computes
-// the spatial-only Gram of the kernel, with the same arithmetic, so its
-// output is compared with the kernel's bit for bit.
+// tools/gram_profile.py and chip_smoke.py only: the library never runs
+// them.  `gram_variant` computes the spatial-only Gram of the kernel with
+// the same arithmetic, so its output is compared with the kernel's bit for
+// bit:
 //
+//   0  the kernel itself (`gram_kernel`) at a chosen tile height
 //   1  the earlier shared-tile design: 64 × 32 tiles staged in shared
 //      memory behind a barrier, 8 rows a thread, 4-byte stores, a
 //      runtime width
@@ -13,10 +15,16 @@
 //   5  the kernel's tiles on a persistent grid of `grid` blocks, each
 //      walking tiles b, b + grid, ...
 //
-// Variant 0 is the kernel itself (`gram_kernel`) at a chosen tile height
-// (0: through `algp_gram`, the kernel's own 8 rows).
+// `gram_composite_variant` computes the composite Gram (Matérn 5/2 × RBF,
+// the feature paths' kernel):
+//
+//   0  the kernel itself (`composite_kernel`) at a chosen tile height, on
+//      unscaled rows and the inverse lengthscales (ds = 2, df ∈ {1, 3, 4})
+//   1  the earlier composite design: the spatial kernel's tiles with both
+//      widths read at run time and every coordinate of both points read
+//      from global memory per output, on segments the caller has scaled
 
-#include "../algp_tpu_torch/csrc/gram.cu"
+#include "../algp_tpu_torch/csrc/gram.cuh"
 
 namespace {
 
@@ -98,7 +106,7 @@ tma_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
         load_row<DS>(x1s, r + q, a);
         float v[kVec];
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) v[j] = __fmul_rn(s, stationary<SK>(sqdist_reg<DS>(a, b[j])));
+        for (int j = 0; j < kVec; ++j) v[j] = __fmul_rn(s, stationary<SK>(sqdist_reg<0, DS>(a, b[j])));
         *reinterpret_cast<float4*>(&buf[nb][q][threadIdx.x * kVec]) =
             make_float4(v[0], v[1], v[2], v[3]);
       }
@@ -141,7 +149,7 @@ half_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
     } else {
       float v[kVec];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) v[j] = __fmul_rn(s, stationary<SK>(sqdist_reg<DS>(a, b[j])));
+      for (int j = 0; j < kVec; ++j) v[j] = __fmul_rn(s, stationary<SK>(sqdist_reg<0, DS>(a, b[j])));
       // every value feeds the test, which never holds (outputs are >= 0)
       if ((__float_as_uint(v[0]) & __float_as_uint(v[1]) & __float_as_uint(v[2]) &
            __float_as_uint(v[3])) == 0xffffffffu)
@@ -158,15 +166,12 @@ persistent_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
                   int rows, int row_tiles, int tiles) {
   const float s = __ldg(scale);
   for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    gram_tile<SK, kNone, 2, true>(x1s, x2s, nullptr, nullptr, s, out, n1, n2, 2, 0, rows,
-                                  row_tiles, t);
+    gram_tile<SK, 2, true>(x1s, x2s, s, out, n1, n2, 2, rows, row_tiles, t);
 }
 
 template <int SK>
 int launch_variant(int variant, const float* x1s, const float* x2s, const float* scale,
                    float* out, int n1, int n2, int ds, int rows, int grid, cudaStream_t st) {
-  if (variant == 0 && rows == 0)
-    return algp_gram(x1s, x2s, nullptr, nullptr, scale, out, n1, n2, ds, 0, SK, kNone, st);
   if (variant == 1) {
     const dim3 block(kSharedCols, kSharedRowThreads);
     const dim3 g((n2 + kSharedCols - 1) / kSharedCols, (n1 + kSharedRows - 1) / kSharedRows);
@@ -179,9 +184,8 @@ int launch_variant(int variant, const float* x1s, const float* x2s, const float*
   const int row_tiles = (n1 + rows - 1) / rows;
   const int tiles = ((n2 + kStrip - 1) / kStrip) * row_tiles;
   if (variant == 0)
-    gram_kernel<SK, kNone, 2, true><<<tiles, kThreads, 0, st>>>(
-        x1s, x2s, nullptr, nullptr, scale, out, n1, n2, 2, 0, rows, row_tiles);
-  else if (variant == 2)
+    return launch_spatial<SK, 2, true>(x1s, x2s, scale, out, n1, n2, 2, rows, st);
+  if (variant == 2)
     tma_kernel<SK, 2><<<tiles, kThreads, 0, st>>>(x1s, x2s, scale, out, n1, n2, rows, row_tiles);
   else if (variant == 3)
     half_kernel<SK, 2, false><<<tiles, kThreads, 0, st>>>(x1s, x2s, scale, out, n1, n2, rows,
@@ -197,7 +201,75 @@ int launch_variant(int variant, const float* x1s, const float* x2s, const float*
   return algp_last_error();
 }
 
+// ---- the earlier composite design --------------------------------------------
+
+// gram_tile's tiles and stores with both widths read at run time: every
+// output reads all ds + df coordinates of its row and its column from
+// global memory (L1-resident) in two runtime loops, on segments scaled by
+// the caller (x1s, x2s: (n, ds); x1f, x2f: (n, df)).
+template <int SK, int FK, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+old_composite_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
+                     const float* __restrict__ x1f, const float* __restrict__ x2f,
+                     const float* __restrict__ scale, float* __restrict__ out, int n1, int n2,
+                     int ds, int df, int rows, int row_tiles) {
+  const float s = __ldg(scale);
+  const int strip = blockIdx.x / row_tiles;
+  const int row0 = (blockIdx.x - strip * row_tiles) * rows;
+  const long long first = (long long)strip * kStrip + threadIdx.x * kVec;
+  if (first >= n2) return;
+  const int col = static_cast<int>(first);
+  const int ncols = min(kVec, n2 - col);
+  const int row1 = min(n1, row0 + rows);
+  float* o = out + (size_t)row0 * n2 + col;
+  for (int row = row0; row < row1; ++row, o += n2) {
+    float v[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const size_t c = VEC || j < ncols ? col + j : col;
+      const float k = stationary<SK>(sqdist_mem(x1s + (size_t)row * ds, x2s + c * ds, ds));
+      v[j] = __fmul_rn(s, __fmul_rn(k, stationary<FK>(sqdist_mem(x1f + (size_t)row * df,
+                                                                  x2f + c * df, df))));
+    }
+    store_row<VEC>(o, v, ncols);
+  }
+}
+
 }  // namespace
+
+// The composite Gram, Matérn 5/2 × RBF, by design variant (see the top of
+// this file).  Variant 0: x1, x2 unscaled (n, 2 + df) rows, `inv` their
+// 2 + df inverse lengthscales, df ∈ {1, 3, 4}, n2 % 4 == 0, 1 ≤ rows ≤ 32.
+// Variant 1: x1, x2 the scaled spatial segments (n, ds) and x1f, x2f the
+// scaled feature ones (n, df), the kernel's 8 rows.  Returns
+// cudaGetLastError.
+ALGP_EXPORT int gram_composite_variant(int variant, const float* x1, const float* x2,
+                                       const float* x1f, const float* x2f, const float* inv,
+                                       const float* scale, float* out, int n1, int n2, int ds,
+                                       int df, int rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n1 < 1 || n2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 1) {
+    int row_tiles;
+    const long long tiles = tile_count(n1, n2, kRows, &row_tiles);
+    if (tiles < 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (rows_vectorisable(n2, out, x2))
+      old_composite_kernel<kMatern52, kRbf, true><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+          x1, x2, x1f, x2f, scale, out, n1, n2, ds, df, kRows, row_tiles);
+    else
+      old_composite_kernel<kMatern52, kRbf, false><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+          x1, x2, x1f, x2f, scale, out, n1, n2, ds, df, kRows, row_tiles);
+    return algp_last_error();
+  }
+  if (variant != 0 || ds != 2 || !rows_vectorisable(n2, out, x2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (df) {
+    case 1: return launch_composite<kMatern52, kRbf, 2, 1, true>(x1, x2, inv, scale, out, n1, n2, ds, df, rows, st);
+    case 3: return launch_composite<kMatern52, kRbf, 2, 3, true>(x1, x2, inv, scale, out, n1, n2, ds, df, rows, st);
+    case 4: return launch_composite<kMatern52, kRbf, 2, 4, true>(x1, x2, inv, scale, out, n1, n2, ds, df, rows, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // The spatial-only Gram by design variant (see the top of this file);
 // sk 0 rbf, 1 matern32, 2 matern52.  Returns cudaGetLastError.
