@@ -285,14 +285,15 @@ def _implicit_pilot_delete(W, pilot_idx, pilot_count, F, G, pdiag, num_pilot):
 
 
 def _mask_of(idx, valid, N):
-    """(N,) bool: True at the valid entries of idx."""
+    """(N,) bool: True at the valid entries of idx that lie in [0, N)."""
     mask = torch.zeros((N + 1,), dtype=torch.bool, device=idx.device)
-    mask.index_fill_(0, torch.where(valid, idx, N), True)
+    inside = valid & (idx >= 0) & (idx < N)
+    mask.index_fill_(0, torch.where(inside, idx, N), True)
     return mask[:N]
 
 
 def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
-                           d0, n_valid=None):
+                           d0, n_valid=None, cols=None, col0=0):
     """Condition the candidate field on all pilots in one batched op.
 
     Returns (C, d, taken, LA): C (m, N) the basis rows (row t is the
@@ -301,6 +302,8 @@ def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
     identity-padded Cholesky factor of K_AA + Σ_A.  Padded pilot slots
     (≥ pilot_count) contribute exactly zero.  `n_valid`: the unpadded
     candidate count for `cond_solve`'s gate (default: x's length).
+    `cols`: the candidates x[col0 : col0 + len(cols)] to condition, a
+    mesh rank's strip (default: all of x); d0, C and taken are theirs.
 
     The (m, N) cross-Gram goes through the Gram kernel (the reference's
     plain `gram` here; the kernel's entries are the same bits for RBF and
@@ -310,6 +313,7 @@ def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
     dev = x.device
     m = pilot_idx.shape[0]
     N = x.shape[0]
+    cols = x if cols is None else cols
     valid = torch.arange(m, device=dev) < pilot_count
     idx_safe = torch.where(valid, pilot_idx, 0)
     xA = x.index_select(0, idx_safe)
@@ -317,10 +321,10 @@ def _batch_pilot_condition(spec, params, x, pilot_nv, pilot_idx, pilot_count,
     pair = valid[:, None] & valid[None, :]
     KA = torch.where(pair, KA, torch.eye(m, dtype=torch.float32, device=dev))
     LA = la.cholesky(KA)
-    Kc = gram_kernel(spec, params, xA, x) * valid[:, None].to(torch.float32)
+    Kc = gram_kernel(spec, params, xA, cols) * valid[:, None].to(torch.float32)
     C = cond_solve(LA, Kc, N if n_valid is None else n_valid)
     d = d0 - torch.sum(C * C, dim=0)
-    return C, d, _mask_of(pilot_idx, valid, N), LA
+    return C, d, _mask_of(pilot_idx - col0, valid, cols.shape[0]), LA
 
 
 def fit_and_select(

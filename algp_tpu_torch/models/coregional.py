@@ -217,20 +217,27 @@ def fit_icm(
     rank: int = 1,
     num_valid=None,
     inits: Optional[ICMParams] = None,
+    mesh=None,
 ) -> ICMFitResult:
     """Multi-restart joint MLL fit of the ICM: `cfg.restarts` inits ×
     `cfg.iters` steps of `cfg.optimizer`, each step one batched nT × nT
     Cholesky.  `obs_mask` (n, T) bool marks the measured cells (None =
     all); `rank` is r of B = A Aᵀ + diag κ; `inits` replaces
-    `make_icm_inits`."""
+    `make_icm_inits`.  `mesh` (`parallel.make_mesh`, every rank calling
+    with the same inputs): each rank of its 'restarts' axis runs its
+    contiguous slice of the restarts and the NLLs are all-gathered; a
+    restart count the axis does not divide runs whole on every rank, as
+    the reference falls back to replication."""
     if inits is None:
         inits = make_icm_inits(spec, cfg, Y.shape[1], rank, generator, device=x.device)
     loss = _icm_loss(spec, cfg, x, Y, obs_mask, noise_scale, num_valid)
-    best_p, best_nll, trace = gp_mod._opt_loop(cfg, loss, inits)
-    k = torch.argmin(best_nll)  # lowest index wins ties (oracle contract)
-    return ICMFitResult(params=gp_mod._take(best_p, k),
-                        nll=best_nll.index_select(0, k.reshape(1))[0],
-                        all_nlls=best_nll, nll_trace=trace, best_restart=k)
+    if mesh is None:
+        ran = gp_mod._opt_loop(cfg, loss, inits)
+    else:
+        from algp_tpu_torch.parallel.sharded import opt_loop_restarts
+
+        ran = opt_loop_restarts(mesh, cfg, loss, inits, ragged="replicate")
+    return gp_mod.best_of(*ran, result=ICMFitResult)
 
 
 # ---------------------------------------------------------------------------

@@ -506,9 +506,15 @@ def _fit_batched(
     """All restarts of `inits` (leading axis) at once, then the winner
     (the counterpart of algp_tpu.models.gp._fit_jit)."""
     loss = _mll_loss(spec, cfg, x, y, noise_scale, num_valid)
-    best_p, best_nll, trace = _opt_loop(cfg, loss, inits)
-    k = torch.argmin(best_nll)  # lowest index wins ties (oracle contract)
-    return FitResult(
+    return best_of(*_opt_loop(cfg, loss, inits))
+
+
+def best_of(best_p, best_nll: torch.Tensor, trace: torch.Tensor, result=FitResult):
+    """The fit result of a restart batch that ran (`_opt_loop`'s outputs):
+    the lowest NLL wins, the lowest index on ties (oracle contract).
+    `result` is the result class (`FitResult`, or one with its fields)."""
+    k = torch.argmin(best_nll)
+    return result(
         params=_take(best_p, k),
         nll=best_nll.index_select(0, k.reshape(1))[0],
         all_nlls=best_nll,

@@ -52,8 +52,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x1, x2, inv (composite) or null, scale, out, n1, n2, ds, df, sk, fk, stream
     "algp_gram": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    # W, j, partial, out, n, stream
-    "algp_wtw_column": (_I, [_P, _P, _P, _P, _I, _P]),
+    # W (a row strip), j, partial, out, n, row0, rows, stream
+    "algp_wtw_column": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "algp_wtw_splits": (_I, [_I]),
     # A (in place, N × N), transposed-panel scratch, inverse scratch, N, stream
     "algp_cholesky": (_I, [_P, _P, _P, _I, _P]),

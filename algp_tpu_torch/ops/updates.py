@@ -4,7 +4,9 @@ bitwise-identical Pallas kernels it replaces).
 
 u = (WᵀW)[:, j] for the lower-triangular seed factor W = L⁻¹, with j a
 device tensor: the kernel reads j from device memory, so the selection
-loop never waits for the host.
+loop never waits for the host.  `wtw_column_strip` is the same sum over a
+row strip W[row0 : row0 + rows] of W, the part of the column a rank of
+the mesh paths (`algp_tpu_torch.parallel`) adds to the others'.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ def _as_index(j, device) -> torch.Tensor:
 
 
 def wtw_column_reference(W: torch.Tensor, j) -> torch.Tensor:
-    """Plain version: W[:, j] @ W (f32, TF32 off)."""
+    """Plain version: W[:, j] @ W (f32, TF32 off), of a square W or of a row
+    strip (the strip form needs no row offset: its zeros are W's)."""
     return W.index_select(1, _as_index(j, W.device))[:, 0] @ W
 
 
@@ -33,30 +36,43 @@ def wtw_column(W: torch.Tensor, j) -> torch.Tensor:
     the plain version for a CPU W.  Only the lower triangle of W is read
     by the kernel, so W must hold exact zeros above its diagonal for the
     two to agree.  An out-of-range j yields a NaN column."""
+    if W.dim() != 2 or W.shape[0] != W.shape[1]:
+        raise ValueError(f"wtw_column: W must be square 2-D, got {tuple(W.shape)}")
+    return wtw_column_strip(W, j, 0)
+
+
+def wtw_column_strip(W_loc: torch.Tensor, j, row0: int) -> torch.Tensor:
+    """Σ_k W[k, j] · W[k, :] over the rows k ∈ [row0, row0 + rows) of a
+    lower-triangular W (N × N), given its row strip W_loc = W[row0 : row0
+    + rows] (rows × N): the CUDA kernel for a CUDA strip, the plain
+    version for a CPU one.  Adding the (N,) results of strips that tile W
+    gives (WᵀW)[:, j].  The kernel reads only the strip's entries at
+    columns ≤ their row, which must hold W's zeros elsewhere."""
     global LAUNCHES
-    if W.device.type == "cpu":
-        return wtw_column_reference(W, j)
-    if W.device.type != "cuda":
-        raise ValueError(f"wtw_column: unsupported device {W.device}")
-    if W.dtype != torch.float32 or W.dim() != 2 or W.shape[0] != W.shape[1]:
-        raise ValueError(
-            f"wtw_column: W must be square 2-D float32, got {W.dtype} "
-            f"{tuple(W.shape)}"
-        )
-    if not W.is_contiguous():
+    if W_loc.dim() != 2 or not 0 <= row0 <= W_loc.shape[1] - W_loc.shape[0]:
+        raise ValueError(f"wtw_column: a {tuple(W_loc.shape)} strip at row {row0} lies "
+                         "outside its square")
+    if W_loc.device.type == "cpu":
+        return wtw_column_reference(W_loc, j)
+    if W_loc.device.type != "cuda":
+        raise ValueError(f"wtw_column: unsupported device {W_loc.device}")
+    if W_loc.dtype != torch.float32:
+        raise ValueError(f"wtw_column: W must be float32, got {W_loc.dtype}")
+    rows, n = W_loc.shape
+    if not W_loc.is_contiguous():
         raise ValueError("wtw_column: W must be contiguous (row-major)")
-    n = W.shape[0]
-    jj = _as_index(j, W.device).to(torch.int32)
-    out = torch.empty((n,), dtype=torch.float32, device=W.device)
+    jj = _as_index(j, W_loc.device).to(torch.int32)
+    out = torch.empty((n,), dtype=torch.float32, device=W_loc.device)
     if n == 0:
         return out
     lib = _cuda.library()
     partial = torch.empty(
-        (lib.algp_wtw_splits(n), n), dtype=torch.float32, device=W.device
+        (lib.algp_wtw_splits(rows), n), dtype=torch.float32, device=W_loc.device
     )
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     code = lib.algp_wtw_column(
-        ptr(W), ptr(jj), ptr(partial), ptr(out), n, _cuda.stream_ptr(W.device)
+        ptr(W_loc), ptr(jj), ptr(partial), ptr(out), n, row0, rows,
+        _cuda.stream_ptr(W_loc.device),
     )
     _cuda.check(code, "wtw_column kernel launch")
     LAUNCHES += 1

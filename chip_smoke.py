@@ -33,7 +33,12 @@ script exits non-zero and never prints the final line:
                 the deep kernel's embedded width d = 2 + 4 at 1 000² (14c's
                 plan cross-Gram) and 10 240² (14d's seed)
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
-                and a ragged N; bitwise repeatability; times per call
+                and a ragged N; bitwise repeatability; the square call
+                bitwise equal to the kernel before its strip form
+                (tools/wtw_parent.cu, built in phase 2); every rank's row
+                strip at N = 10 240 for S = 2 and 4 vs W_loc[:, j] @ W_loc
+                within 1e-4·max|u|; times per call, and per strip beside
+                its bound
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
                 the f64 oracle (tests/oracle.py) index for index
   6. main     — bench.py's workload through the port: a 100×100 field,
@@ -121,13 +126,41 @@ script exits non-zero and never prints the final line:
                 part, the tied scores); kernel and library times in turns,
                 the torch.profiler split of one factorization by kernel,
                 launches per factorization, TFLOP/s and share of the bound
+ 15. the mesh paths (algp_tpu_torch.parallel), every rank on card 0 through
+                `parallel.launch`; the times are of ranks sharing one card
+                (gloo stages through host memory), never a multi-card figure:
+ 15a. mesh_dryrun — `dryrun_multichip` on a world of 1 (NCCL: no
+                device→host sync in the greedy loops) and of 4 (gloo)
+ 15b. mesh_main — the main path's workload through `sharded_training_step`
+                on 2 × 2 (MI and entropy) from the restart inits of a
+                single-rank `fit_and_select`: winning NLL within 1e-4
+                relative; selections equal the single-rank `greedy_select`
+                on the mesh's fitted params, MI equal the f64 oracle's,
+                each pair equal or parting first where the reference's
+                scores tie within 1e-5 relative; median ms of 3 after the
+                counted run, per-rank peak memory, launches per rank
+ 15c. mesh_dist_seed — MI with the distributed seed on 1 × 4, same field:
+                against the oracle, where it parts from the replicated seed,
+                each rank's (N/4, N) W strip
+ 15f. mesh_oracle_follow — the f64 oracle replays 15b's MI and 15c's
+                selections (tests/oracle.follow_selection): at each of the
+                50 rounds the mesh's pick scores within 1e-5 relative of
+                the round's best, so the rounds after a tie-rule parting
+                are checked too
+ 15d. mesh_lowrank — phase 9b's workload on 1 × 4 against the single-rank
+                `greedy_select_lowrank`; each rank's (N/4, M) VT strip
+ 15e. mesh_icm — `sharded_fit_icm` (234 plots, 3 traits, 4 restarts) on
+                2 × 1 from a single-rank `fit_icm`'s inits: every NLL within
+                1e-4 relative
  11. kernels  — one JSON line for all kernels: launches on the paths, error
                 against the plain version, kernel / plain / library ms and
                 the card's bound
 Each path (main, episode, lowrank_main, episode_100k, episode_long,
 lowrank_1m, episode_1m, episode_4m, episode_4m_ens, episode_1m_long, the
-phases 12a-14d, the Cholesky seed path) runs with the kernel counts set to
-0 just before it and read just after.  The line before the kernels line gives the
+phases 12a-14d, the Cholesky seed path, the mesh paths 15b-15e in every
+rank) runs with the kernel counts set to 0 just before it and read just
+after; phase 15 runs after phase 10 and prints before the kernels line
+(15f after 15e).  The line before the kernels line gives the
 script's total seconds.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -282,11 +315,12 @@ def phase_build():
 
     tool = load_module("gram_profile", ROOT / "tools" / "gram_profile.py")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         variants = pool.submit(tool.build)
+        parent = pool.submit(build_wtw_parent)
         _cuda.library()
         secs = time.perf_counter() - t0
-        variants = variants.result()
+        variants, parent = variants.result(), parent.result()
     emit("build", seconds=round(secs, 3), variants_seconds=round(time.perf_counter() - t0, 3),
          **ptxas_summary(_cuda.build_log(), {**tool.KERNEL_PATTERNS,
                                              **tool.COMPOSITE_PATTERNS}))
@@ -306,7 +340,33 @@ def phase_build():
     emit("gram_sass", per_output={k: v and v.get("per_output") for k, v in sass.items()},
          global_loads_per_output={k: v and v.get("global_loads_per_output")
                                   for k, v in sass.items()}, loops=sass)
-    return tool, tool.load(variants)
+    return tool, tool.load(variants), parent
+
+
+def build_wtw_parent():
+    """The precision-column kernel as it was before it took a row strip
+    (tools/wtw_parent.cu), loaded: phase 4 holds the square call to its
+    bits."""
+    import ctypes
+    import hashlib
+
+    from algp_tpu_torch.ops import _cuda
+
+    src = ROOT / "tools" / "wtw_parent.cu"
+    h = hashlib.sha256(" ".join(_cuda.NVCC_FLAGS).encode() + src.read_bytes()
+                       + (_cuda.CSRC / "common.cuh").read_bytes()).hexdigest()[:16]
+    lib = OUT / "wtw_parent" / h / "libwtw_parent.so"
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(lib),
+                               str(src)], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    out = ctypes.CDLL(str(lib))
+    P = ctypes.c_void_p
+    out.wtw_column_parent.restype = ctypes.c_int
+    out.wtw_column_parent.argtypes = [P, P, P, P, ctypes.c_int, P]
+    return out
 
 
 def ptxas_summary(log: str, patterns: dict) -> dict:
@@ -510,11 +570,18 @@ def composite_gram_cases(dev, check, results, tool, variants) -> dict:
     return out
 
 
-def phase_wtw(dev) -> dict:
+def phase_wtw(dev, parent) -> dict:
+    """The precision-column kernel against W[:, j] @ W (within 1e-4·max|u|)
+    and bitwise against its form before the strip (`parent`, phase 2);
+    then each rank's strip at N = 10 240 for S = 2 and 4 against
+    W_loc[:, j] @ W_loc; times of the square call and of the strips."""
+    import ctypes
+
     from algp_tpu_torch.ops import updates as U
 
     gen = torch.Generator(device=dev).manual_seed(0)
     worst_abs, worst_rel, out = 0.0, 0.0, {}
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     for n, js in ((10240, (0, 511, 512, 5000, 10239)), (1000, (0, 511, 512, 999))):
         W = torch.randn((n, n), generator=gen, device=dev) / n ** 0.5
         W = torch.tril(W)
@@ -524,6 +591,14 @@ def phase_wtw(dev) -> dict:
             ref = U.wtw_column_reference(W, jt)
             if not torch.equal(u1, u2):
                 raise AssertionError(f"wtw kernel not repeatable (N={n}, j={j})")
+            was = torch.empty_like(u1)
+            partial = torch.empty(((n + 127) // 128, n), device=dev)
+            _check_code(parent.wtw_column_parent(
+                ptr(W), ptr(jt.to(torch.int32)), ptr(partial), ptr(was), n,
+                torch.cuda.current_stream(dev).cuda_stream), "wtw_column_parent")
+            if not torch.equal(u1, was):
+                raise AssertionError(f"wtw square call differs from the parent kernel "
+                                     f"(N={n}, j={j})")
             err = float((u1 - ref).abs().max())
             rel = err / float(ref.abs().max())
             if not rel <= 1e-4:
@@ -535,18 +610,66 @@ def phase_wtw(dev) -> dict:
                 out[j] = (cuda_ms(lambda: U.wtw_column(W, jt), 50),
                           cuda_ms(lambda: U.wtw_column_reference(W, jt), 50))
             library_ms = cuda_ms(lambda: W[:, 0] @ W, 50)  # one PyTorch call
+            strip = wtw_strips(dev, W, js)
+            worst_abs = max(worst_abs, strip.pop("max_abs_err"))
         del W
     # bytes the kernel must read at j: the lower triangle from row j on
     gb_read = lambda j: ((10240 - j) * (10240 + j + 1) / 2) * 4 / 1e9
     emit("wtw", max_abs_err=worst_abs, max_rel_err=worst_rel, tol="1e-4*max|u|",
+         square_call="bitwise the kernel before the strip form (tools/wtw_parent.cu)",
          us_per_call={f"j={j}": {"kernel": k * 1e3, "plain": p * 1e3,
                                  "kernel_GBps": round(gb_read(j) / (k * 1e-3), 1)}
-                      for j, (k, p) in out.items()})
+                      for j, (k, p) in out.items()}, strip=strip)
     k0, p0 = out[0]
     # j = 0: the whole lower triangle read once, one multiply-add per entry
     bound_ms, bound_by = bound(gb_read(0) * 1e9 + 4 * 10240, 10240 * 10241)
     return {"max_abs_err": worst_abs, "ms": k0, "plain_ms": p0,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "strip": strip}
+
+
+def _check_code(code: int, what: str) -> None:
+    if code:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def wtw_strips(dev, W, js) -> dict:
+    """Every rank's strip of W (N = 10 240) for S = 2 and 4: the kernel
+    within 1e-4·max|u| of W_loc[:, j] @ W_loc, the strips' sum within
+    1e-4·max|u| of the square column; at j = 0 each strip's time against
+    its plain product and its bound (its entries at columns ≤ the row read
+    once, the (N,) column written once)."""
+    from algp_tpu_torch.ops import updates as U
+
+    n = W.shape[0]
+    worst, times = 0.0, {}
+    for S in (2, 4):
+        nl = n // S
+        strips = [W[r * nl:(r + 1) * nl].contiguous() for r in range(S)]
+        for j in js:
+            jt = torch.tensor(j, device=dev)
+            total = torch.zeros(n, device=dev)
+            for r, W_loc in enumerate(strips):
+                got = U.wtw_column_strip(W_loc, jt, r * nl)
+                ref = U.wtw_column_reference(W_loc, jt)
+                err = float((got - ref).abs().max())
+                if not err <= 1e-4 * float(ref.abs().max()):
+                    raise AssertionError(f"wtw strip {r} of {S} vs plain: {err} (j={j})")
+                worst = max(worst, err)
+                total += got
+            full = U.wtw_column_reference(W, jt)
+            if not float((total - full).abs().max()) <= 1e-4 * float(full.abs().max()):
+                raise AssertionError(f"wtw strips of {S} do not add up to the column (j={j})")
+        j0 = torch.tensor(0, device=dev)
+        for r, W_loc in enumerate(strips):
+            r0, r1 = r * nl, (r + 1) * nl
+            bms, by = bound((r1 - r0) * (r0 + r1 + 1) / 2 * 4 + 4 * n, (r1 - r0) * (r0 + r1 + 1) / 2)
+            times[f"S={S} rank {r}"] = {
+                "ms": cuda_ms(lambda: U.wtw_column_strip(W_loc, j0, r0), 50),
+                "plain_ms": cuda_ms(lambda: U.wtw_column_reference(W_loc, j0), 50),
+                "bound_ms": bms, "bound_by": by}
+        del strips
+    return {"max_abs_err": worst, "tol": "1e-4*max|u|", "j0_times": times}
 
 
 def load_module(name: str, path: Path):
@@ -1472,27 +1595,46 @@ def phase_field_episode(dev, card: str, tag: str, args: list,
     return {"launches": run["launches"], "fit_s_median": out["fit_s_median"]}
 
 
-def oracle_greedy_mi(oracle_path: str, spec: dict, x, ls_spatial, ls_feature,
-                     outputscale: float, nv: float, rounds: int, pilot) -> tuple:
-    """The f64 oracle's greedy MI selections on the given inputs (host
-    numpy; runs in a worker process too): (selections, seconds)."""
+def _oracle_gram(oracle_path: str, spec: dict, x, ls_spatial, ls_feature,
+                 outputscale: float) -> tuple:
+    """(the f64 oracle module, its Gram of x)."""
     oracle = load_module("oracle", Path(oracle_path))
+    return oracle, oracle.gram(x, x, spatial_kind=spec["spatial_kind"],
+                               feature_kind=spec["feature_kind"], ds=spec["ds"],
+                               ls_spatial=ls_spatial, ls_feature=ls_feature,
+                               outputscale=outputscale)
+
+
+def oracle_greedy_mi_scores(oracle_path: str, spec: dict, x, ls_spatial, ls_feature,
+                            outputscale: float, nv: float, rounds: int, pilot) -> tuple:
+    """The f64 oracle's greedy MI on the given inputs (host numpy; runs in a
+    worker process too): (selections, (rounds, N) scores, seconds)."""
     t0 = time.perf_counter()
-    K = oracle.gram(x, x, spatial_kind=spec["spatial_kind"],
-                    feature_kind=spec["feature_kind"], ds=spec["ds"],
-                    ls_spatial=ls_spatial, ls_feature=ls_feature, outputscale=outputscale)
-    ref, _ = oracle.greedy_mi_selection(K, nv, rounds, pilot)
-    return ref, time.perf_counter() - t0
+    oracle, K = _oracle_gram(oracle_path, spec, x, ls_spatial, ls_feature, outputscale)
+    ref, traces = oracle.greedy_mi_selection(K, nv, rounds, pilot)
+    return ref, np.stack(traces), time.perf_counter() - t0
 
 
-def greedy_vs_oracle(dev, oracle, args: list, pool=None) -> dict:
+def oracle_follow_mi(oracle_path: str, spec: dict, x, ls_spatial, ls_feature,
+                     outputscale: float, nv: float, rounds: int, pilot,
+                     selections) -> tuple:
+    """The f64 oracle replaying `selections` on the inputs of
+    `oracle_greedy_mi_scores` (`oracle.follow_selection`; host numpy, in a
+    worker process): ((rounds, 2) the pick's score and the round's best,
+    seconds)."""
+    t0 = time.perf_counter()
+    oracle, K = _oracle_gram(oracle_path, spec, x, ls_spatial, ls_feature, outputscale)
+    pairs = oracle.follow_selection(K, nv, selections, pilot, strategy="mi")
+    return np.asarray(pairs), time.perf_counter() - t0
+
+
+def greedy_vs_oracle(dev, oracle, args: list, pool) -> dict:
     """Greedy MI of `cli.run_greedy` (a field with features): its record,
     the fitted params, nv and pilots it selected with, its selections,
     and the f64 oracle's on the same inputs (the candidates it selected
     over: embedded ones for a deep kernel).  The Gram and wtw launches of
-    the run are counted; the oracle's work is host numpy, in `pool` when
-    given (then `oracle_future` resolves to (selections, seconds)),
-    else here."""
+    the run are counted; the oracle's work is host numpy in `pool`
+    (`oracle_future` resolves to `oracle_greedy_mi_scores`' result)."""
     from algp_tpu_torch import acquisition as acq
     from algp_tpu_torch import cli
 
@@ -1530,10 +1672,7 @@ def greedy_vs_oracle(dev, oracle, args: list, pool=None) -> dict:
            cfg.acquisition.rounds, seen["pilot"].cpu().numpy())
     out = dict(rec=rec, selected=seen["selected"], run_ms=run_ms, X_dim=int(x.shape[1]),
                select_ms=seen["select_ms"], launches=launches)
-    if pool is not None:
-        out["oracle_future"] = pool.apply_async(oracle_greedy_mi, job)
-    else:
-        out["oracle"], out["oracle_s"] = oracle_greedy_mi(*job)
+    out["oracle_future"] = pool.apply_async(oracle_greedy_mi_scores, job)
     return out
 
 
@@ -1555,7 +1694,7 @@ def phase_greedy_c2(dev, oracle, card: str, main_ms: float, tag: str, args: list
         raise AssertionError(f"{tag} launches: {launches}")
 
     def finish():
-        ref, oracle_s = out["oracle_future"].get()
+        ref, _, oracle_s = out["oracle_future"].get()
         if not np.array_equal(sel, ref):
             first = int(np.flatnonzero(sel != ref)[0])
             raise AssertionError(f"{tag} selections differ from the f64 oracle from round "
@@ -1745,18 +1884,440 @@ def phase_chol(dev, main_run, episode_run, card: str) -> dict:
             "library_ms": t["library_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the mesh paths (algp_tpu_torch.parallel), every rank on card 0
+# ---------------------------------------------------------------------------
+
+MESH_ROUNDS = 50
+MESH_REPS = 3  # timed runs after the counted warm-up
+LAUNCH_KEYS = ("gram", "wtw_column", "cholesky", "gram_composite")
+
+
+def _mesh_timed(fn) -> tuple:
+    """(the counted first run's result, its launch counts, the ms of
+    MESH_REPS more runs, peak bytes): every run starts behind a barrier of
+    the world and ends in a host read of its result."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out = fn()
+    launches = np.asarray([_counts()[k] for k in LAUNCH_KEYS])
+    times = []
+    for _ in range(MESH_REPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, launches, np.asarray(times), torch.cuda.max_memory_allocated()
+
+
+def mesh_rank(job: str, restarts_axis: int, data: dict) -> dict:
+    """Phase 15's work on one rank of a world started by
+    `algp_tpu_torch.parallel.launch` (this module is imported in every
+    rank; nothing here runs at import)."""
+    from algp_tpu_torch.config import FitConfig
+    from algp_tpu_torch.convert import icm_params_from_numpy, kernel_params_from_numpy
+    from algp_tpu_torch.ops.kernels import KernelSpec
+    from algp_tpu_torch.parallel import sharded, sharded_lowrank, sharded_mi
+
+    mesh = sharded.make_mesh(restarts_axis=restarts_axis)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+    spec = KernelSpec(data["kind"], ds=2)
+    out = {}
+
+    def record(tag, launches, times, peak):
+        out.update({f"{tag}/launches": launches, f"{tag}/ms": times, f"{tag}/peak": peak})
+
+    if job == "main":
+        cfg = FitConfig(**data["cfg"])
+        inits = kernel_params_from_numpy(data["inits"], dev)
+        x, xp, yp, pilot = t(data["x"]), t(data["x_pilot"]), t(data["y_pilot"]), t(
+            data["pilot"], torch.int64)
+        nv = torch.full((x.shape[0],), float(data["nv"]), device=dev)
+        for strategy in ("mi", "entropy"):
+            def run():
+                p, nlls, sel, _ = sharded.sharded_training_step(
+                    mesh, spec, cfg, xp, yp, x, nv, pilot, rounds=MESH_ROUNDS,
+                    strategy=strategy, inits=inits)
+                return p, nlls, sel.cpu().numpy()
+
+            (p, nlls, sel), *rest = _mesh_timed(run)
+            record(strategy, *rest)
+            out.update({f"{strategy}/selected": sel, f"{strategy}/all_nlls": nlls.cpu().numpy(),
+                        **{f"{strategy}/p_{k}": v.cpu().numpy()
+                           for k, v in dataclasses.asdict(p).items()}})
+    elif job in ("dist_seed", "lowrank"):
+        params = kernel_params_from_numpy(data["params"], dev)
+        x, pilot = t(data["x"]), t(data["pilot"], torch.int64)
+        nv = torch.full((x.shape[0],), float(data["nv"]), device=dev)
+        kw = dict(rounds=MESH_ROUNDS, num_pilot=len(data["pilot"]))
+        if job == "dist_seed":
+            run = lambda: sharded_mi.sharded_greedy_select_mi(
+                mesh, spec, params, x, nv, pilot, distributed_seed=True, **kw)
+        else:
+            z = t(data["z"])
+            run = lambda: sharded_lowrank.sharded_greedy_select_mi_lowrank(
+                mesh, spec, params, x, nv, pilot, z, **kw)
+        def read():
+            res = run()
+            res.selected.cpu()
+            return res
+
+        res, *rest = _mesh_timed(read)
+        record(job, *rest)
+        out.update({f"{job}/selected": res.selected.cpu().numpy(),
+                    **{f"{job}/strip_{k}": np.asarray(v) for k, v in res.strips.items()}})
+    elif job == "icm":
+        cfg = FitConfig(**data["cfg"])
+        inits = icm_params_from_numpy(data["inits"], dev)
+        x, Y, obs = t(data["x"]), t(data["Y"]), t(data["obs"], torch.bool)
+        def fit_icm():
+            fit = sharded.sharded_fit_icm(mesh, spec, cfg, x, Y, obs, inits=inits)
+            fit.nll.cpu()
+            return fit
+
+        fit, *rest = _mesh_timed(fit_icm)
+        record(job, *rest)
+        out.update({"icm/all_nlls": fit.all_nlls.cpu().numpy(), "icm/nll": fit.nll.cpu().numpy()})
+    else:
+        raise ValueError(job)
+    return out
+
+
+def _mesh_run(job: str, world: int, restarts_axis: int, data: dict) -> tuple:
+    """The job on a gloo world of `world` ranks sharing card 0: (rank
+    outputs, seconds of the call, start-up included)."""
+    from algp_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    outs = launch.run(f"{Path(__file__).resolve()}:mesh_rank", world, backend="gloo",
+                      device="cuda", timeout=600,
+                      kwargs={"job": job, "restarts_axis": restarts_axis, "data": data})
+    for key in outs[0]:
+        if key.endswith("/selected") or key.endswith("nlls"):
+            for o in outs[1:]:
+                if not np.array_equal(o[key], outs[0][key]):
+                    raise AssertionError(f"mesh {job}: ranks disagree on {key}")
+    return outs, time.perf_counter() - t0
+
+
+def _rank_stats(outs, tag: str, world: int, card: str) -> dict:
+    """The line's common fields: the world, rank 0's ms, each rank's peak,
+    and the launches summed over the ranks (the counted run)."""
+    launches = sum(o[f"{tag}/launches"] for o in outs)
+    ms = outs[0][f"{tag}/ms"]
+    return {"backend": "gloo", "world": world, "ranks_per_card": world,
+            "median_ms": float(np.median(ms)), "reps_ms": ms.tolist(),
+            "peak_mem_GB_by_rank": [round(float(o[f"{tag}/peak"]) / 1e9, 3) for o in outs],
+            "launches": dict(zip(LAUNCH_KEYS, launches.tolist())),
+            "timing": f"{world} ranks sharing one card through gloo, not a multi-card figure",
+            "card": card}
+
+
+def _check_launches(outs, tag: str, want: dict) -> None:
+    """Each rank's counted run launched `want[kernel]` times (others 0)."""
+    for r, o in enumerate(outs):
+        got = dict(zip(LAUNCH_KEYS, o[f"{tag}/launches"].tolist()))
+        if any(got[k] != want.get(k, 0) for k in LAUNCH_KEYS):
+            raise AssertionError(f"mesh {tag}, rank {r}: launches {got}, expected {want}")
+
+
+def tie_rule(what: str, sel, ref, scores_at) -> dict:
+    """Equal, or parting first at a round where the reference scores the
+    pick of `sel` within 1e-5 relative of its own (the main field's
+    near-ties, phase 10); any other parting fails."""
+    sel, ref = np.asarray(sel), np.asarray(ref)
+    if np.array_equal(sel, ref):
+        return {"equal": True}
+    r = int(np.flatnonzero(sel != ref)[0])
+    s = np.asarray(scores_at(r), np.float64)
+    top, other = s[ref[r]], s[sel[r]]
+    rel = float((top - other) / abs(top))
+    if not rel <= 1e-5:
+        raise AssertionError(f"{what}: parts from the reference at round {r}: "
+                             f"{sel[r:r + 5]} vs {ref[r:r + 5]}, scores {top} vs {other}")
+    return {"equal": False, "parted_at_round": r, "picks": [int(sel[r]), int(ref[r])],
+            "reference_scores": [float(top), float(other)], "rel": rel}
+
+
+def mesh_reference(dev, main_run) -> dict:
+    """The single-rank run the mesh phases are held to: the main path's
+    `fit_and_select` (MI) from restart inits drawn from seed 0, its NLL,
+    fitted params and nv, and the f64 oracle's job on them."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch.config import FitConfig
+    from algp_tpu_torch.convert import kernel_params_to_numpy
+    from algp_tpu_torch.models import gp
+    from algp_tpu_torch.ops.kernels import KernelSpec
+
+    spec = KernelSpec("rbf", ds=2)
+    cfg = FitConfig(iters=100, restarts=4)
+    env, pilot = main_run["env"], main_run["pilot_j"]
+    inits = gp.make_restart_inits(spec, cfg, torch.Generator(device=dev).manual_seed(0))
+    fit, sel = acq.fit_and_select(spec, cfg, main_run["x_pilot"], main_run["y_pilot"], env.X,
+                                  pilot, rounds=MESH_ROUNDS, num_pilot=len(pilot),
+                                  strategy="mi", inits=inits)
+    p = fit.params
+    nv = max(float(torch.exp(2 * p.log_noise)), cfg.min_noise ** 2)
+    x64 = env.X.cpu().numpy().astype(np.float64)
+    oracle_job = (str(ROOT / "tests" / "oracle.py"), dataclasses.asdict(spec), x64,
+                  np.exp(p.log_ls_spatial.cpu().numpy().astype(np.float64)),
+                  np.exp(p.log_ls_feature.cpu().numpy().astype(np.float64)),
+                  float(torch.exp(p.log_outputscale)), nv, MESH_ROUNDS, pilot.cpu().numpy())
+    return {"spec": spec, "cfg": cfg, "nll": float(fit.nll), "nv": nv, "env": env,
+            "params_np": kernel_params_to_numpy(p), "oracle_job": oracle_job,
+            "selected": sel.selected.cpu().numpy(), "inits": kernel_params_to_numpy(inits),
+            "x": env.X.cpu().numpy(), "x_pilot": main_run["x_pilot"].cpu().numpy(),
+            "y_pilot": main_run["y_pilot"].cpu().numpy(), "pilot": pilot.cpu().numpy()}
+
+
+def _single_rank(dev, ref: dict, params_np: dict, strategy: str) -> tuple:
+    """Single-rank `greedy_select` on the main field with the given params
+    and the reference's nv: (selections, (rounds, N) scores)."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch.convert import kernel_params_from_numpy
+
+    env = ref["env"]
+    r = acq.greedy_select(ref["spec"], kernel_params_from_numpy(params_np, dev), env.X,
+                          torch.full((env.n,), ref["nv"], device=dev),
+                          torch.tensor(ref["pilot"], device=dev), rounds=MESH_ROUNDS,
+                          num_pilot=len(ref["pilot"]), strategy=strategy, return_scores=True)
+    return r.selected.cpu().numpy(), r.scores.cpu().numpy()
+
+
+def phase_mesh_dryrun(card: str) -> None:
+    """15a: the dry run on a world of 1 (NCCL) and of 4 (gloo), on card 0."""
+    from algp_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    worlds = []
+    for world, backend in ((1, "nccl"), (4, "gloo")):
+        t0 = time.perf_counter()
+        rec = dryrun_multichip(world, backend=backend, device="cuda")
+        line = {"backend": backend, "world": world, "ranks_per_card": world,
+                "seconds": round(time.perf_counter() - t0, 3),
+                "mi_selected": rec["mi_selected"].tolist(),
+                "icm_nlls": rec["icm_nlls"].tolist()}
+        if backend == "nccl":
+            syncs = rec["loop_syncs"].tolist()
+            if len(syncs) != 4 or any(syncs):  # the four sharded greedy loops
+                raise AssertionError(f"device->host syncs in the NCCL world's loops: {syncs}")
+            line["loop_syncs"] = syncs
+        worlds.append(line)
+    emit("mesh_dryrun", worlds=worlds, checks="selections = single rank (entropy, MI, "
+         "distributed seed, low-rank); ICM NLLs within 1e-4", card=card)
+
+
+def phase_mesh_main(dev, ref: dict, oracle_ref, card: str, oracle_s: float) -> dict:
+    """15b: bench.py's workload through `sharded_training_step` on a 2 × 2
+    world, MI and entropy, from `mesh_reference`'s restart inits: the
+    winning NLL against that run's, the selections against the single-rank
+    `greedy_select` on the mesh's fitted params, MI against the f64 oracle
+    (on the single-rank params)."""
+    data = {"kind": "rbf", "cfg": dataclasses.asdict(ref["cfg"]), "inits": ref["inits"],
+            "x": ref["x"], "x_pilot": ref["x_pilot"], "y_pilot": ref["y_pilot"],
+            "pilot": ref["pilot"], "nv": ref["nv"]}
+    outs, secs = _mesh_run("main", 4, 2, data)
+    # MI: the pilots' cross-Gram and the replicated seed's Gram, a strip
+    # column a round; entropy: the pilots' (32, N/2) cross-Gram
+    _check_launches(outs, "mi", {"gram": 2, "wtw_column": MESH_ROUNDS})
+    _check_launches(outs, "entropy", {"gram": 1})
+    o, lines, launches = outs[0], {}, {}
+    for strategy in ("mi", "entropy"):
+        nll = float(np.min(o[f"{strategy}/all_nlls"]))
+        if not abs(nll - ref["nll"]) <= 1e-4 * abs(ref["nll"]):
+            raise AssertionError(f"mesh {strategy}: winning NLL {nll} vs single rank "
+                                 f"{ref['nll']}")
+        params = {k: o[f"{strategy}/p_{k}"] for k in ref["params_np"]}
+        want, scores = _single_rank(dev, ref, params, strategy)
+        sel = o[f"{strategy}/selected"]
+        lines[strategy] = {"vs_single_rank": tie_rule(f"mesh {strategy}", sel, want,
+                                                      lambda r: scores[r]),
+                           "nll": nll, "nll_single_rank": ref["nll"],
+                           "params_max_abs_diff": max(
+                               float(np.abs(params[k] - v).max())
+                               for k, v in ref["params_np"].items() if v.size),
+                           "first_selected": sel[:10].tolist(),
+                           **_rank_stats(outs, strategy, 4, card)}
+        launches[strategy] = lines[strategy]["launches"]
+    o_sel, traces = oracle_ref
+    lines["mi"]["vs_f64_oracle"] = tie_rule("mesh mi vs the oracle", o["mi/selected"], o_sel,
+                                            lambda r: traces[r])
+    emit("mesh_main", workload="sharded_training_step on 2 x 2: 100x100 rbf ls 8, 32 pilots, "
+         "adam 4x100 (2 restarts a rank), 50 rounds", call_seconds=round(secs, 3),
+         oracle_seconds=round(oracle_s, 1), **lines)
+    return {"launches": {k: launches["mi"][k] + launches["entropy"][k] for k in LAUNCH_KEYS},
+            "mi_selected": o["mi/selected"]}
+
+
+def phase_mesh_dist_seed(dev, ref: dict, oracle_ref, card: str, rep_selected) -> dict:
+    """15c: MI on a 1 × 4 world with the distributed seed, on 15b's field
+    with `mesh_reference`'s params and nv: against the f64 oracle, and
+    where it parts from the replicated seed of 15b (single-rank scores)."""
+    data = {"kind": "rbf", "params": ref["params_np"], "x": ref["x"], "pilot": ref["pilot"],
+            "nv": ref["nv"]}
+    outs, secs = _mesh_run("dist_seed", 4, 1, data)
+    # the (N/4, N) seed strip and the pilots' cross-Gram; a strip column a round
+    _check_launches(outs, "dist_seed", {"gram": 2, "wtw_column": MESH_ROUNDS})
+    sel = outs[0]["dist_seed/selected"]
+    _, rep_scores = _single_rank(dev, ref, ref["params_np"], "mi")
+    o_sel, traces = oracle_ref
+    n_pad = -(-len(ref["x"]) // 512) * 512
+    strips = [tuple(o["dist_seed/strip_W"].tolist()) for o in outs]
+    if any(s != (n_pad // 4, n_pad) for s in strips):
+        raise AssertionError(f"W strips {strips}, not ({n_pad // 4}, {n_pad})")
+    stats = _rank_stats(outs, "dist_seed", 4, card)
+    emit("mesh_dist_seed", workload="MI on 1 x 4, distributed seed: 15b's field, params, nv",
+         vs_f64_oracle=tie_rule("distributed seed vs the oracle", sel, o_sel,
+                                lambda r: traces[r]),
+         vs_replicated_seed=tie_rule("distributed seed vs the replicated", sel, rep_selected,
+                                     lambda r: rep_scores[r]),
+         W_strip_by_rank=strips, call_seconds=round(secs, 3),
+         first_selected=sel[:10].tolist(), **stats)
+    return {"launches": stats["launches"], "selected": sel}
+
+
+def phase_mesh_lowrank(dev, card: str) -> dict:
+    """15d: phase 9b's workload (N = 102 400, M = 1 024) on a 1 × 4 world,
+    held against the single-rank `greedy_select_lowrank`."""
+    from algp_tpu_torch import acquisition_lowrank as lr
+    from algp_tpu_torch.config import FitConfig
+    from algp_tpu_torch.convert import kernel_params_to_numpy
+    from algp_tpu_torch.ops.kernels import KernelSpec
+
+    spec = KernelSpec("matern32", ds=2)
+    cfg = FitConfig(iters=60, restarts=4)
+    x_np, pilot_np, y_np = lowrank_workload(LOWRANK_GRID, 64)
+    x = torch.tensor(x_np, device=dev)
+    pilot = torch.tensor(pilot_np, device=dev)
+    fit, _ = lr.fit_and_select_lowrank(
+        spec, cfg, x.index_select(0, pilot), torch.tensor(y_np, device=dev), x, pilot,
+        rounds=1, num_pilot=64, num_inducing=LOWRANK_M,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    p = fit.params
+    nv = max(float(p.noise_var), cfg.min_noise ** 2)
+    z = x.index_select(0, lr.kcenter_indices(x, LOWRANK_M))
+    want = lr.greedy_select_lowrank(spec, p, x, torch.full((len(x_np),), nv, device=dev),
+                                    pilot, z, rounds=MESH_ROUNDS, num_pilot=64,
+                                    return_scores=True)
+    want_sel, scores = want.selected.cpu().numpy(), want.scores.cpu().numpy()
+    data = {"kind": "matern32", "params": kernel_params_to_numpy(p), "x": x_np,
+            "pilot": pilot_np, "nv": nv, "z": z.cpu().numpy()}
+    del x, z, want
+    torch.cuda.empty_cache()
+    outs, secs = _mesh_run("lowrank", 4, 1, data)
+    _check_launches(outs, "lowrank", {"gram": 2})  # K(z, x_loc), the pilots' cross-Gram
+    sel = outs[0]["lowrank/selected"]
+    strips = [tuple(o["lowrank/strip_VT"].tolist()) for o in outs]
+    n_pad = -(-len(x_np) // 512) * 512
+    if any(s != (n_pad // 4, LOWRANK_M) for s in strips):
+        raise AssertionError(f"VT strips {strips}, not ({n_pad // 4}, {LOWRANK_M})")
+    stats = _rank_stats(outs, "lowrank", 4, card)
+    emit("mesh_lowrank", workload=f"low-rank MI on 1 x 4: {LOWRANK_GRID}x{LOWRANK_GRID} "
+         f"jittered matern32, M={LOWRANK_M}, 64 pilots, 50 rounds (9b's fitted params)",
+         vs_single_rank=tie_rule("mesh low-rank", sel, want_sel, lambda r: scores[r]),
+         VT_strip_by_rank=strips, call_seconds=round(secs, 3),
+         first_selected=sel[:10].tolist(), **stats)
+    return {"launches": stats["launches"]}
+
+
+def phase_mesh_icm(dev, card: str) -> dict:
+    """15e: `sharded_fit_icm` at 14a's end-of-episode size (234 plots, 3
+    traits, a quarter of traits 1-2 observed, 4 restarts of 150 steps) on a
+    2 × 1 world, from the single-rank `fit_icm`'s inits."""
+    from algp_tpu_torch.config import FitConfig
+    from algp_tpu_torch.models import coregional as icm
+    from algp_tpu_torch.ops.kernels import KernelSpec
+
+    spec = KernelSpec("matern32", ds=2)
+    cfg = FitConfig(iters=150, restarts=4)
+    rng = np.random.default_rng(14)
+    n = 234
+    x = rng.integers(0, 100, (n, 2)).astype(np.float32)
+    f = np.sin(0.08 * x[:, 0]) * np.cos(0.06 * x[:, 1])
+    Y = np.stack([f, 0.8 * f + 0.6 * np.cos(0.05 * x[:, 0]), 0.8 * f - 0.3], 1)
+    Y = (Y + 0.1 * rng.standard_normal((n, 3))).astype(np.float32)
+    obs = rng.uniform(size=(n, 3)) < 0.25
+    obs[:, 0] = True
+    inits = icm.make_icm_inits(spec, cfg, 3, 1, torch.Generator(device=dev).manual_seed(0))
+    t = lambda a: torch.tensor(a, device=dev)
+    single = icm.fit_icm(spec, cfg, t(x), t(Y), t(obs), inits=inits)
+    to_np = lambda p: {k: (to_np(v) if isinstance(v, dict) else v.cpu().numpy())
+                       for k, v in p.items()}
+    data = {"kind": "matern32", "cfg": dataclasses.asdict(cfg), "x": x, "Y": Y, "obs": obs,
+            "inits": to_np(dataclasses.asdict(inits))}
+    outs, secs = _mesh_run("icm", 2, 2, data)
+    _check_launches(outs, "icm", {})  # the fit's Grams are the plain small ones
+    got, want = outs[0]["icm/all_nlls"], single.all_nlls.cpu().numpy()
+    best, best_1 = float(outs[0]["icm/nll"]), float(single.nll)
+    if not (np.all(np.abs(got - want) <= 1e-4 * np.abs(want))
+            and abs(best - best_1) <= 1e-4 * abs(best_1)):
+        raise AssertionError(f"mesh ICM NLLs {got} (best {best}) vs single rank {want} "
+                             f"(best {best_1})")
+    stats = _rank_stats(outs, "icm", 2, card)
+    emit("mesh_icm", workload="sharded_fit_icm on 2 x 1: 234 plots, 3 traits, matern32, "
+         "adam 4x150 (2 restarts a rank)", all_nlls=got.tolist(), all_nlls_single=want.tolist(),
+         nll=best, nll_single=best_1, call_seconds=round(secs, 3), **stats)
+    return {"launches": stats["launches"]}
+
+
+def eps_optimal(what: str, pairs) -> dict:
+    """Each round's pick within 1e-5 relative of the round's best score
+    under the f64 oracle (15b's tie rule, at every round); else fails."""
+    chosen, best = np.asarray(pairs, np.float64).T
+    rel = (best - chosen) / np.abs(best)
+    bad = np.flatnonzero(~(rel <= 1e-5))
+    if bad.size:
+        r = int(bad[0])
+        raise AssertionError(f"{what}: round {r}'s pick scores {chosen[r]} under the f64 "
+                             f"oracle, the round's best {best[r]}")
+    return {"rounds": int(rel.size), "worst_rel": float(rel.max()),
+            "rounds_below_best": int(np.count_nonzero(rel > 0))}
+
+
+def phase_mesh(dev, card: str, ref: dict, oracle_future, pool) -> dict:
+    """Phase 15, the mesh paths: 15a-15e in turn, then 15f, the f64
+    oracle's replay of 15b's MI and 15c's selections (in `pool`, while
+    15c-15e run); returns each path's launches (summed over its ranks)."""
+    torch.cuda.empty_cache()  # leave the card's memory to the ranks
+    phase_mesh_dryrun(card)
+    sel, traces, oracle_s = oracle_future.get()
+    oracle_ref = (sel, traces)
+    main = phase_mesh_main(dev, ref, oracle_ref, card, oracle_s)
+    follow = {"mesh_main_mi": pool.apply_async(
+        oracle_follow_mi, (*ref["oracle_job"], main["mi_selected"]))}
+    dist_seed = phase_mesh_dist_seed(dev, ref, oracle_ref, card, main["mi_selected"])
+    follow["mesh_dist_seed"] = pool.apply_async(
+        oracle_follow_mi, (*ref["oracle_job"], dist_seed["selected"]))
+    out = {"mesh_main": main["launches"], "mesh_dist_seed": dist_seed["launches"],
+           "mesh_lowrank": phase_mesh_lowrank(dev, card)["launches"],
+           "mesh_icm": phase_mesh_icm(dev, card)["launches"]}
+    lines = {}
+    for tag, fut in follow.items():
+        pairs, secs = fut.get()
+        lines[tag] = {**eps_optimal(f"{tag} under the f64 oracle", pairs),
+                      "oracle_seconds": round(secs, 1)}
+    emit("mesh_oracle_follow", check="every round's pick within 1e-5 relative of the "
+         "round's best score, the f64 oracle following the mesh's picks", **lines, card=card)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
-    tool, variants = phase_build()
+    tool, variants, wtw_parent = phase_build()
     gram = phase_gram(dev, tool, variants)
-    wtw = phase_wtw(dev)
+    wtw = phase_wtw(dev, wtw_parent)
     oracle = load_module("oracle", ROOT / "tests" / "oracle.py")
     phase_fidelity(dev, oracle)
     main_run = phase_main(dev, oracle, smi)
     phase_layers(dev, main_run)
     phase_profile(main_run)
+    mesh_ref = mesh_reference(dev, main_run)
     episode_run = phase_episode(dev, smi)
     lowrank_run = phase_lowrank_main(dev, oracle, smi)
     episode_100k = phase_episode_100k(dev, smi)
@@ -1767,19 +2328,21 @@ def main() -> None:
     episode_4m = phase_episode_4m(dev, smi)
     episode_4m_ens = phase_episode_4m_ens(dev, smi, episode_4m)
     episode_1m_long = phase_episode_1m_long(dev, smi)
-    # the greedy phases' f64 oracles (≈ 150 s of host numpy each) run in
-    # two worker processes while the card goes on; BLAS threads capped so
-    # the workers leave the host loop of the episodes cores
+    # the f64 oracles of the greedy phases and of the mesh phases, and 15f's
+    # replays (150-200 s of host numpy each) run in three worker processes
+    # while the card goes on; BLAS threads capped so the workers leave the
+    # host loop of the episodes cores
     blas = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
     saved = {k: os.environ.get(k) for k in blas}
-    os.environ.update({k: "3" for k in blas})
-    pool = multiprocessing.get_context("spawn").Pool(processes=2)
+    os.environ.update({k: "2" for k in blas})
+    pool = multiprocessing.get_context("spawn").Pool(processes=3)
     for k, v in saved.items():
         if v is None:
             os.environ.pop(k)
         else:
             os.environ[k] = v
     try:
+        mesh_oracle = pool.apply_async(oracle_greedy_mi_scores, mesh_ref["oracle_job"])
         greedy = {
             "greedy_c2": phase_greedy_c2(
                 dev, oracle, smi, main_run["median_ms"], "greedy_c2", GREEDY_C2_ARGS,
@@ -1793,7 +2356,6 @@ def main() -> None:
                 "(adam 4x150 twice), the composite Gram over d = 2 + 4, exact MI seed, "
                 "50 rounds", pool),
         }
-        pool.close()
         field_runs = {tag: phase_field_episode(dev, smi, tag, args)
                       for tag, args in FIELD_EPISODES}
         field_runs.update({tag: phase_field_episode(dev, smi, tag, args)
@@ -1805,6 +2367,8 @@ def main() -> None:
         chol = phase_chol(dev, main_run, episode_run, smi)
         for run in greedy.values():
             run["finish"]()
+        mesh = phase_mesh(dev, smi, mesh_ref, mesh_oracle, pool)
+        pool.close()
         pool.join()
     finally:
         pool.terminate()
@@ -1820,7 +2384,7 @@ def main() -> None:
              "episode_1m_long": episode_1m_long["launches"],
              **{tag: r["launches"] for tag, r in field_runs.items()},
              **{tag: r["launches"] for tag, r in greedy.items()},
-             "chol_seed": chol.pop("launches")}
+             "chol_seed": chol.pop("launches"), **mesh}
 
     def entry(name, source, replaces, stats):
         by_path = {k: v[name] for k, v in paths.items()}

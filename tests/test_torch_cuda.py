@@ -113,6 +113,98 @@ def test_wtw_kernel_out_of_range_index_is_nan(dev):
         U.wtw_column(W.T, 3)  # not row-major
 
 
+@pytest.mark.parametrize("n,S", [(1000, 1), (1000, 3), (2048, 2), (2048, 4)])
+def test_wtw_strip_kernel_matches_plain(dev, n, S):
+    """Each rank's strip of W (ragged when S does not divide n): the kernel
+    against W_loc[:, j] @ W_loc, and the strips' sum against the square
+    column."""
+    gen = torch.Generator(device=dev).manual_seed(n + S)
+    W = torch.tril(torch.randn((n, n), generator=gen, device=dev))
+    bounds = np.linspace(0, n, S + 1).round().astype(int)
+    for j in sorted({0, n // 3, n - 1}):
+        jt = torch.tensor(j, device=dev)
+        full = U.wtw_column_reference(W, jt)
+        total = torch.zeros_like(full)
+        for r0, r1 in zip(bounds[:-1], bounds[1:]):
+            W_loc = W[r0:r1].contiguous()
+            before = U.LAUNCHES
+            got = U.wtw_column_strip(W_loc, jt, int(r0))
+            assert U.LAUNCHES == before + 1
+            ref = U.wtw_column_reference(W_loc, jt)
+            assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-30
+            total += got
+        assert (total - full).abs().max().item() <= 1e-4 * full.abs().max().item()
+
+
+def _wtw_parent(tmp_path):
+    """The kernel as it was before it took a strip (tools/wtw_parent.cu),
+    built here."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from algp_tpu_torch.ops import _cuda
+
+    src = Path(__file__).resolve().parent.parent / "tools" / "wtw_parent.cu"
+    lib = tmp_path / "libwtw_parent.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib))
+    P = ctypes.c_void_p
+    lib.wtw_column_parent.restype = ctypes.c_int
+    lib.wtw_column_parent.argtypes = [P, P, P, P, ctypes.c_int, P]
+    return lib
+
+
+def test_wtw_square_call_is_bitwise_the_parent_kernel(dev, tmp_path):
+    import ctypes
+
+    lib = _wtw_parent(tmp_path)
+    for n in (300, 1000, 2048):
+        W = torch.tril(torch.randn((n, n), generator=torch.Generator(device=dev).manual_seed(n),
+                                   device=dev))
+        for j in (0, n // 2, n - 1):
+            jt = torch.tensor([j], dtype=torch.int32, device=dev)
+            want = torch.empty(n, device=dev)
+            partial = torch.empty(((n + 127) // 128, n), device=dev)
+            ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+            assert lib.wtw_column_parent(ptr(W), ptr(jt), ptr(partial), ptr(want), n,
+                                         torch.cuda.current_stream().cuda_stream) == 0
+            assert torch.equal(U.wtw_column(W, jt), want)
+
+
+def test_sharded_mi_on_two_gloo_ranks_sharing_the_card(dev):
+    """The mesh loop on the card: two gloo ranks on card 0, both seeds,
+    the selections equal to the single-card loop's and the f64 oracle's."""
+    from pathlib import Path
+
+    from algp_tpu_torch.convert import kernel_params_to_numpy
+    from algp_tpu_torch.parallel import launch
+
+    jobs = str(Path(__file__).resolve().parent / "torch_mesh_jobs.py") + ":run_cases"
+    x = _jittered_grid(16, 20, seed=5)
+    spec = KernelSpec("rbf", ds=2)
+    params = spec.init_params(ls_spatial=3.0, outputscale=1.0, noise=0.15, device=dev)
+    nv = np.full(len(x), 0.15 ** 2)
+    pilot = np.array([3, 100, 100, 250])
+    case = dict(params=kernel_params_to_numpy(params), x=x, nv=nv, pilot=pilot, rounds=30)
+    cases = {"rep": ("mi", dict(case, distributed_seed=False)),
+             "dist": ("mi", dict(case, distributed_seed=True)),
+             "entropy": ("greedy", dict(case, strategy="entropy"))}
+    outs = launch.run(jobs, 2, backend="gloo", device="cuda", timeout=600,
+                      kwargs={"restarts_axis": 1, "cases": cases, "device": "cuda"})
+    K = oracle.gram(x, x, ls_spatial=3.0, outputscale=1.0)
+    ref_mi, _ = oracle.greedy_mi_selection(K, 0.15 ** 2, 30, pilot)
+    ref_var, _ = oracle.greedy_variance_selection(K, 0.15 ** 2, 30, pilot)
+    for o in outs:
+        np.testing.assert_array_equal(o["rep/selected"], _select(
+            dev, spec, params, x, nv, pilot, 30, "mi"))
+        np.testing.assert_array_equal(o["rep/selected"], ref_mi)
+        np.testing.assert_array_equal(o["dist/selected"], ref_mi)
+        np.testing.assert_array_equal(o["entropy/selected"], ref_var)
+        assert tuple(o["rep/strip_W"]) == (256, 512)
+
+
 def _jittered_grid(rows, cols, seed):
     rng = np.random.default_rng(seed)
     r, c = np.divmod(np.arange(rows * cols), cols)

@@ -25,6 +25,8 @@ def test_import_pulls_in_no_jax():
         "import algp_tpu_torch.acquisition_lowrank, algp_tpu_torch.models.sparse_gp\n"
         "import algp_tpu_torch.utils.metrics, algp_tpu_torch.models.multifit\n"
         "import algp_tpu_torch.models.coregional, algp_tpu_torch.models.networks\n"
+        "import algp_tpu_torch.parallel, algp_tpu_torch.parallel.launch\n"
+        "import algp_tpu_torch.parallel.dryrun\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'optax', 'algp_tpu', 'triton', 'networkx', 'pandas')]\n"
