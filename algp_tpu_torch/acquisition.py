@@ -221,6 +221,7 @@ def _greedy_select(
             F, G, pdiag = _implicit_pilot_delete(
                 W, pilot_idx, pilot_count, F, G, pdiag, num_pilot
             )
+        u0 = torch.empty((N,), dtype=W.dtype, device=dev)  # every round's (WᵀW)[:, j]
 
     scores = torch.full(
         (rounds if return_scores else 0, N), -torch.inf, device=dev
@@ -238,7 +239,7 @@ def _greedy_select(
         B, d = _condition(B, d, col, j1, nv.index_select(0, j1), t)
         if strategy == "mi":
             # current precision column u = (WᵀW)[:, j] − F·G[:, j]
-            u = wtw_column(W, j1) - F @ G.index_select(1, j1)[:, 0]
+            u = wtw_column(W, j1, out=u0) - F @ G.index_select(1, j1)[:, 0]
             pjj = pdiag.index_select(0, j1)
             F[:, t] = u
             G[t] = u / pjj

@@ -52,9 +52,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x1, x2, inv (composite) or null, scale, out, n1, n2, ds, df, sk, fk, stream
     "algp_gram": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    # W (a row strip), j, partial, out, n, row0, rows, stream
-    "algp_wtw_column": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "algp_wtw_splits": (_I, [_I]),
+    # W (a row strip), j (int64), out, n, row0, rows, stream
+    "algp_wtw_column": (_I, [_P, _P, _P, _I, _I, _I, _P]),
+    # its launch shape with an empty kernel: W, n, row0, rows, stream
+    "algp_wtw_empty": (_I, [_P, _I, _I, _I, _P]),
     # A (in place, N × N), transposed-panel scratch, inverse scratch, N, stream
     "algp_cholesky": (_I, [_P, _P, _P, _I, _P]),
     "algp_chol_tile": (_I, []),
@@ -152,6 +153,9 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def stream_ptr(device) -> int:
-    """The handle of PyTorch's current CUDA stream on `device`."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on `device` (a CUDA
+    tensor's device, which names its index), read without building a
+    `torch.cuda.Stream`.  Read at every launch, never cached: a stream
+    context or a CUDA graph capture changes it."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

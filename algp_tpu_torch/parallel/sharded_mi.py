@@ -212,9 +212,15 @@ def greedy_loop(spec: KernelSpec, params: KernelParams, strip: Strip, st: StripS
 
 def exact_precision(strip: Strip, W_loc: torch.Tensor, F, G, pdiag) -> Precision:
     """The exact precision from this rank's rows of W: P0[strip, j] =
-    (the grid's sum of the strip kernel's partial columns)[strip]."""
+    (the grid's sum of the strip kernel's partial columns)[strip].  The
+    (N,) partial lives in one buffer for the whole loop: a round's kernel
+    and sum overwrite it in place, and the round's update (`u = column −
+    F·G[:, j]`, a new tensor) has read it before the next round's kernel,
+    later on the same stream, writes it again."""
+    u0 = torch.empty((W_loc.shape[1],), dtype=W_loc.dtype, device=W_loc.device)
+
     def column(j1):
-        u0 = wtw_column_strip(W_loc, j1, strip.g0)
+        wtw_column_strip(W_loc, j1, strip.g0, out=u0)
         return psum(u0, strip.mesh.grid_group)[strip.rows]
 
     return Precision(F=F, G=G, pdiag=pdiag, column=column,

@@ -33,12 +33,16 @@ script exits non-zero and never prints the final line:
                 the deep kernel's embedded width d = 2 + 4 at 1 000² (14c's
                 plan cross-Gram) and 10 240² (14d's seed)
   4. wtw      — the precision-column kernel vs W[:, j] @ W at N = 10 240
-                and a ragged N; bitwise repeatability; the square call
-                bitwise equal to the kernel before its strip form
-                (tools/wtw_parent.cu, built in phase 2); every rank's row
+                and a ragged N; bitwise repeatability; every rank's row
                 strip at N = 10 240 for S = 2 and 4 vs W_loc[:, j] @ W_loc
-                within 1e-4·max|u|; times per call, and per strip beside
-                its bound
+                within 1e-4·max|u|; one kernel launch a call (profiler)
+                and no allocation over 100 calls with `out`; for the
+                square call (j = 0, 5000) and every strip (j = 0): the
+                wrapper's time back to back, the device time of the kernel
+                alone (one CUDA graph of 50 calls), the same two for the
+                plain version and for W_loc[:, j] @ W_loc, the bytes bound,
+                and the device time of an empty kernel on the same launch
+                shape (the floor)
   5. fidelity — 50-round greedy entropy / MI selections on the card equal
                 the f64 oracle (tests/oracle.py) index for index
   6. main     — bench.py's workload through the port: a 100×100 field,
@@ -315,12 +319,11 @@ def phase_build():
 
     tool = load_module("gram_profile", ROOT / "tools" / "gram_profile.py")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(1) as pool:
         variants = pool.submit(tool.build)
-        parent = pool.submit(build_wtw_parent)
         _cuda.library()
         secs = time.perf_counter() - t0
-        variants, parent = variants.result(), parent.result()
+        variants = variants.result()
     emit("build", seconds=round(secs, 3), variants_seconds=round(time.perf_counter() - t0, 3),
          **ptxas_summary(_cuda.build_log(), {**tool.KERNEL_PATTERNS,
                                              **tool.COMPOSITE_PATTERNS}))
@@ -340,33 +343,7 @@ def phase_build():
     emit("gram_sass", per_output={k: v and v.get("per_output") for k, v in sass.items()},
          global_loads_per_output={k: v and v.get("global_loads_per_output")
                                   for k, v in sass.items()}, loops=sass)
-    return tool, tool.load(variants), parent
-
-
-def build_wtw_parent():
-    """The precision-column kernel as it was before it took a row strip
-    (tools/wtw_parent.cu), loaded: phase 4 holds the square call to its
-    bits."""
-    import ctypes
-    import hashlib
-
-    from algp_tpu_torch.ops import _cuda
-
-    src = ROOT / "tools" / "wtw_parent.cu"
-    h = hashlib.sha256(" ".join(_cuda.NVCC_FLAGS).encode() + src.read_bytes()
-                       + (_cuda.CSRC / "common.cuh").read_bytes()).hexdigest()[:16]
-    lib = OUT / "wtw_parent" / h / "libwtw_parent.so"
-    if not lib.exists():
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(lib),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    out = ctypes.CDLL(str(lib))
-    P = ctypes.c_void_p
-    out.wtw_column_parent.restype = ctypes.c_int
-    out.wtw_column_parent.argtypes = [P, P, P, P, ctypes.c_int, P]
-    return out
+    return tool, tool.load(variants)
 
 
 def ptxas_summary(log: str, patterns: dict) -> dict:
@@ -570,18 +547,16 @@ def composite_gram_cases(dev, check, results, tool, variants) -> dict:
     return out
 
 
-def phase_wtw(dev, parent) -> dict:
+def phase_wtw(dev) -> dict:
     """The precision-column kernel against W[:, j] @ W (within 1e-4·max|u|)
-    and bitwise against its form before the strip (`parent`, phase 2);
-    then each rank's strip at N = 10 240 for S = 2 and 4 against
-    W_loc[:, j] @ W_loc; times of the square call and of the strips."""
-    import ctypes
-
+    and against itself (bit for bit); one launch and no allocation a call
+    with `out`; then each rank's strip at N = 10 240 for S = 2 and 4
+    against W_loc[:, j] @ W_loc; times of the square call and of the
+    strips (`wtw_times`)."""
     from algp_tpu_torch.ops import updates as U
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst_abs, worst_rel, out = 0.0, 0.0, {}
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    worst_abs, worst_rel, times = 0.0, 0.0, {}
     for n, js in ((10240, (0, 511, 512, 5000, 10239)), (1000, (0, 511, 512, 999))):
         W = torch.randn((n, n), generator=gen, device=dev) / n ** 0.5
         W = torch.tril(W)
@@ -591,58 +566,130 @@ def phase_wtw(dev, parent) -> dict:
             ref = U.wtw_column_reference(W, jt)
             if not torch.equal(u1, u2):
                 raise AssertionError(f"wtw kernel not repeatable (N={n}, j={j})")
-            was = torch.empty_like(u1)
-            partial = torch.empty(((n + 127) // 128, n), device=dev)
-            _check_code(parent.wtw_column_parent(
-                ptr(W), ptr(jt.to(torch.int32)), ptr(partial), ptr(was), n,
-                torch.cuda.current_stream(dev).cuda_stream), "wtw_column_parent")
-            if not torch.equal(u1, was):
-                raise AssertionError(f"wtw square call differs from the parent kernel "
-                                     f"(N={n}, j={j})")
             err = float((u1 - ref).abs().max())
             rel = err / float(ref.abs().max())
             if not rel <= 1e-4:
                 raise AssertionError(f"wtw kernel vs plain: rel {rel} (N={n}, j={j})")
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
         if n == 10240:
+            calls = wtw_one_launch_no_alloc(dev, W)
             for j in (0, 5000):
-                jt = torch.tensor(j, device=dev)
-                out[j] = (cuda_ms(lambda: U.wtw_column(W, jt), 50),
-                          cuda_ms(lambda: U.wtw_column_reference(W, jt), 50))
-            library_ms = cuda_ms(lambda: W[:, 0] @ W, 50)  # one PyTorch call
-            strip = wtw_strips(dev, W, js)
+                # the lower triangle from row j on read once, the column written once
+                times[f"square j={j}"] = wtw_times(dev, W, j, 0)
+            strip = wtw_strips(dev, W, js, times)
             worst_abs = max(worst_abs, strip.pop("max_abs_err"))
         del W
-    # bytes the kernel must read at j: the lower triangle from row j on
-    gb_read = lambda j: ((10240 - j) * (10240 + j + 1) / 2) * 4 / 1e9
     emit("wtw", max_abs_err=worst_abs, max_rel_err=worst_rel, tol="1e-4*max|u|",
-         square_call="bitwise the kernel before the strip form (tools/wtw_parent.cu)",
-         us_per_call={f"j={j}": {"kernel": k * 1e3, "plain": p * 1e3,
-                                 "kernel_GBps": round(gb_read(j) / (k * 1e-3), 1)}
-                      for j, (k, p) in out.items()}, strip=strip)
-    k0, p0 = out[0]
-    # j = 0: the whole lower triangle read once, one multiply-add per entry
-    bound_ms, bound_by = bound(gb_read(0) * 1e9 + 4 * 10240, 10240 * 10241)
-    return {"max_abs_err": worst_abs, "ms": k0, "plain_ms": p0,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "strip": strip}
+         calls=calls, strip=strip, times=times,
+         timing="ms: the wrapper with `out`, 50 calls back to back (CUDA events); "
+                "device_ms: one CUDA graph of 50 calls, replayed; plain_*: "
+                "wtw_column_reference; library_*: W_loc[:, j] @ W_loc (one call); "
+                "floor_device_ms: an empty kernel on the call's grid and cluster shape")
+    sq = times["square j=0"]
+    return {"max_abs_err": worst_abs, "ms": sq["ms"], "device_ms": sq["device_ms"],
+            "plain_ms": sq["plain_ms"], "bound_ms": sq["bound_ms"], "bound_by": sq["bound_by"],
+            "library_ms": sq["library_ms"], "floor_device_ms": sq["floor_device_ms"],
+            "times": times}
 
 
-def _check_code(code: int, what: str) -> None:
-    if code:
-        raise RuntimeError(f"{what}: CUDA error {code}")
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device time of one fn() with no host work between calls: `reps`
+    calls captured in one CUDA graph, the graph replayed 3 times (CUDA
+    events), warm."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
 
 
-def wtw_strips(dev, W, js) -> dict:
-    """Every rank's strip of W (N = 10 240) for S = 2 and 4: the kernel
-    within 1e-4·max|u| of W_loc[:, j] @ W_loc, the strips' sum within
-    1e-4·max|u| of the square column; at j = 0 each strip's time against
-    its plain product and its bound (its entries at columns ≤ the row read
-    once, the (N,) column written once)."""
+def wtw_times(dev, W_loc, j: int, row0: int) -> dict:
+    """One case's times at index j (the strip W_loc of rows [row0, row0 +
+    rows)): kernel, plain version and W_loc[:, j] @ W_loc, each back to
+    back through its call and as device time alone; an empty kernel on
+    the kernel's launch shape; the bytes bound (the strip's entries at
+    columns ≤ the row from row max(row0, j) on read once, the (N,) column
+    written once; one multiply-add an entry)."""
+    from algp_tpu_torch.ops import _cuda
+    from algp_tpu_torch.ops import updates as U
+
+    rows, n = W_loc.shape
+    jt = torch.tensor([j], device=dev)
+    out = torch.empty(n, device=dev)
+    lib = _cuda.library()
+    runs = {"": lambda: U.wtw_column_strip(W_loc, jt, row0, out=out),
+            "plain_": lambda: U.wtw_column_reference(W_loc, jt),
+            "library_": lambda: W_loc[:, j] @ W_loc}
+    case = {}
+    for tag in list(runs) + list(runs)[::-1]:  # in turns: kernel, plain, library, ...
+        case.setdefault(f"{tag}ms", []).append(cuda_ms(runs[tag], 50))
+        case.setdefault(f"{tag}device_ms", []).append(graph_ms(runs[tag]))
+    case = {k: float(np.mean(v)) for k, v in case.items()}
+    case["floor_device_ms"] = graph_ms(lambda: _cuda.check(lib.algp_wtw_empty(
+        W_loc.data_ptr(), n, row0, rows, _cuda.stream_ptr(dev)), "wtw empty launch"))
+    k0 = max(row0, j)
+    entries = max(row0 + rows - k0, 0) * (k0 + row0 + rows + 1) / 2
+    case["bound_ms"], case["bound_by"] = bound(4 * entries + 4 * n, entries)
+    case["device_share_of_bound"] = case["bound_ms"] / case["device_ms"]
+    case["no_slower_than_library"] = case["ms"] <= case["library_ms"]
+    return case
+
+
+def wtw_one_launch_no_alloc(dev, W) -> dict:
+    """A call with `out` (the loops' form), square and strip: exactly one
+    kernel on the device (torch.profiler), and no allocation over 100
+    calls (the caching allocator's count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from algp_tpu_torch.ops import updates as U
 
     n = W.shape[0]
-    worst, times = 0.0, {}
+    W_loc = W[n // 4:n // 2].contiguous()
+    jt = torch.tensor([1], device=dev)
+    out = torch.empty(n, device=dev)
+    res = {}
+    for tag, call in (("square", lambda: U.wtw_column(W, jt, out=out)),
+                      ("strip", lambda: U.wtw_column_strip(W_loc, jt, n // 4, out=out))):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(100):
+            call()
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+        if len(kernels) != 1 or allocs:
+            raise AssertionError(f"wtw {tag} call: device kernels {kernels}, "
+                                 f"{allocs} allocations over 100 calls")
+        res[tag] = {"device_kernels": kernels, "allocations_in_100_calls": allocs}
+    del W_loc
+    return res
+
+
+def wtw_strips(dev, W, js, times) -> dict:
+    """Every rank's strip of W (N = 10 240) for S = 2 and 4: the kernel
+    within 1e-4·max|u| of W_loc[:, j] @ W_loc with exact zeros past the
+    strip's last row, the strips' sum within 1e-4·max|u| of the square
+    column; at j = 0 each strip's times (`wtw_times`) into `times`."""
+    from algp_tpu_torch.ops import updates as U
+
+    n = W.shape[0]
+    worst = 0.0
     for S in (2, 4):
         nl = n // S
         strips = [W[r * nl:(r + 1) * nl].contiguous() for r in range(S)]
@@ -655,21 +702,17 @@ def wtw_strips(dev, W, js) -> dict:
                 err = float((got - ref).abs().max())
                 if not err <= 1e-4 * float(ref.abs().max()):
                     raise AssertionError(f"wtw strip {r} of {S} vs plain: {err} (j={j})")
+                if (got[(r + 1) * nl:] != 0).any():
+                    raise AssertionError(f"wtw strip {r} of {S}: nonzero past its rows (j={j})")
                 worst = max(worst, err)
                 total += got
             full = U.wtw_column_reference(W, jt)
             if not float((total - full).abs().max()) <= 1e-4 * float(full.abs().max()):
                 raise AssertionError(f"wtw strips of {S} do not add up to the column (j={j})")
-        j0 = torch.tensor(0, device=dev)
         for r, W_loc in enumerate(strips):
-            r0, r1 = r * nl, (r + 1) * nl
-            bms, by = bound((r1 - r0) * (r0 + r1 + 1) / 2 * 4 + 4 * n, (r1 - r0) * (r0 + r1 + 1) / 2)
-            times[f"S={S} rank {r}"] = {
-                "ms": cuda_ms(lambda: U.wtw_column_strip(W_loc, j0, r0), 50),
-                "plain_ms": cuda_ms(lambda: U.wtw_column_reference(W_loc, j0), 50),
-                "bound_ms": bms, "bound_by": by}
+            times[f"S={S} rank {r}"] = wtw_times(dev, W_loc, 0, r * nl)
         del strips
-    return {"max_abs_err": worst, "tol": "1e-4*max|u|", "j0_times": times}
+    return {"max_abs_err": worst, "tol": "1e-4*max|u|"}
 
 
 def load_module(name: str, path: Path):
@@ -2309,9 +2352,9 @@ def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
-    tool, variants, wtw_parent = phase_build()
+    tool, variants = phase_build()
     gram = phase_gram(dev, tool, variants)
-    wtw = phase_wtw(dev, wtw_parent)
+    wtw = phase_wtw(dev)
     oracle = load_module("oracle", ROOT / "tests" / "oracle.py")
     phase_fidelity(dev, oracle)
     main_run = phase_main(dev, oracle, smi)

@@ -92,7 +92,7 @@ def test_gram_kernel_raises_instead_of_falling_back(dev):
         G.gram_kernel(spec, p, x, x.cpu())
 
 
-@pytest.mark.parametrize("n", [1, 300, 1000, 2048])
+@pytest.mark.parametrize("n", [1, 300, 301, 1000, 2048, 10240])
 def test_wtw_kernel_matches_plain_and_repeats(dev, n):
     gen = torch.Generator(device=dev).manual_seed(n)
     W = torch.tril(torch.randn((n, n), generator=gen, device=dev))
@@ -109,68 +109,89 @@ def test_wtw_kernel_matches_plain_and_repeats(dev, n):
 def test_wtw_kernel_out_of_range_index_is_nan(dev):
     W = torch.tril(torch.ones((64, 64), device=dev))
     assert torch.isnan(U.wtw_column(W, torch.tensor(64, device=dev))).all()
+    assert torch.isnan(U.wtw_column(W, torch.tensor([-1], device=dev))).all()
+    assert torch.isnan(U.wtw_column_strip(W[16:40].contiguous(), torch.tensor(2 ** 40, device=dev),
+                                          16)).all()
     with pytest.raises(ValueError):
         U.wtw_column(W.T, 3)  # not row-major
 
 
-@pytest.mark.parametrize("n,S", [(1000, 1), (1000, 3), (2048, 2), (2048, 4)])
+def _strips(n, S):
+    bounds = np.linspace(0, n, S + 1).round().astype(int)
+    return list(zip(bounds[:-1].tolist(), bounds[1:].tolist()))
+
+
+@pytest.mark.parametrize("n,S", [(n, S) for n in (301, 1000, 2048, 10240) for S in (1, 2, 3, 4)])
 def test_wtw_strip_kernel_matches_plain(dev, n, S):
-    """Each rank's strip of W (ragged when S does not divide n): the kernel
-    against W_loc[:, j] @ W_loc, and the strips' sum against the square
-    column."""
+    """Each rank's strip of W (ragged when S does not divide n, 4-byte
+    loads when n % 4 ≠ 0): the kernel against W_loc[:, j] @ W_loc, exact
+    zeros in the columns past the strip's last row, and the strips' sum
+    against the square column."""
     gen = torch.Generator(device=dev).manual_seed(n + S)
     W = torch.tril(torch.randn((n, n), generator=gen, device=dev))
-    bounds = np.linspace(0, n, S + 1).round().astype(int)
     for j in sorted({0, n // 3, n - 1}):
         jt = torch.tensor(j, device=dev)
         full = U.wtw_column_reference(W, jt)
         total = torch.zeros_like(full)
-        for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        for r0, r1 in _strips(n, S):
             W_loc = W[r0:r1].contiguous()
             before = U.LAUNCHES
-            got = U.wtw_column_strip(W_loc, jt, int(r0))
+            got = U.wtw_column_strip(W_loc, jt, r0)
             assert U.LAUNCHES == before + 1
             ref = U.wtw_column_reference(W_loc, jt)
             assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-30
+            assert (got[r1:] == 0).all() and not torch.signbit(got[r1:]).any()
             total += got
         assert (total - full).abs().max().item() <= 1e-4 * full.abs().max().item()
 
 
-def _wtw_parent(tmp_path):
-    """The kernel as it was before it took a strip (tools/wtw_parent.cu),
-    built here."""
-    import ctypes
-    import subprocess
-    from pathlib import Path
+def test_wtw_reused_output_repeats_bitwise(dev):
+    """One `out` buffer over rounds of different j, as the loops use it:
+    each round bit for bit a fresh call's column, and the same j twice the
+    same bits; the int32 index takes the conversion and the same bits."""
+    n = 2048
+    gen = torch.Generator(device=dev).manual_seed(5)
+    W = torch.tril(torch.randn((n, n), generator=gen, device=dev))
+    W_loc = W[512:1536].contiguous()
+    out, out_s = torch.empty(n, device=dev), torch.empty(n, device=dev)
+    for j in (7, 1500, 7, 2047, 0, 1024):
+        jt = torch.tensor([j], device=dev)
+        assert U.wtw_column(W, jt, out=out) is out
+        assert torch.equal(out, U.wtw_column(W, jt))
+        assert torch.equal(out, U.wtw_column(W, jt.to(torch.int32)))
+        assert U.wtw_column_strip(W_loc, jt, 512, out=out_s) is out_s
+        assert torch.equal(out_s, U.wtw_column_strip(W_loc, jt, 512))
+    with pytest.raises(ValueError, match="out must be"):
+        U.wtw_column(W, jt, out=torch.empty(n - 1, device=dev))
 
-    from algp_tpu_torch.ops import _cuda
 
-    src = Path(__file__).resolve().parent.parent / "tools" / "wtw_parent.cu"
-    lib = tmp_path / "libwtw_parent.so"
-    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib))
-    P = ctypes.c_void_p
-    lib.wtw_column_parent.restype = ctypes.c_int
-    lib.wtw_column_parent.argtypes = [P, P, P, P, ctypes.c_int, P]
-    return lib
-
-
-def test_wtw_square_call_is_bitwise_the_parent_kernel(dev, tmp_path):
-    import ctypes
-
-    lib = _wtw_parent(tmp_path)
-    for n in (300, 1000, 2048):
-        W = torch.tril(torch.randn((n, n), generator=torch.Generator(device=dev).manual_seed(n),
-                                   device=dev))
-        for j in (0, n // 2, n - 1):
-            jt = torch.tensor([j], dtype=torch.int32, device=dev)
-            want = torch.empty(n, device=dev)
-            partial = torch.empty(((n + 127) // 128, n), device=dev)
-            ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-            assert lib.wtw_column_parent(ptr(W), ptr(jt), ptr(partial), ptr(want), n,
-                                         torch.cuda.current_stream().cuda_stream) == 0
-            assert torch.equal(U.wtw_column(W, jt), want)
+def test_wtw_call_is_one_launch_and_no_allocation(dev):
+    """A call with `out` launches exactly one kernel (the profiler's device
+    events) and allocates nothing over 100 calls (the caching allocator's
+    count), for the square call and a strip."""
+    n = 4096
+    gen = torch.Generator(device=dev).manual_seed(6)
+    W = torch.tril(torch.randn((n, n), generator=gen, device=dev))
+    W_loc = W[1024:2048].contiguous()
+    jt = torch.tensor([100], device=dev)
+    out = torch.empty(n, device=dev)
+    calls = (lambda: U.wtw_column(W, jt, out=out),
+             lambda: U.wtw_column_strip(W_loc, jt, 1024, out=out))
+    for call in calls:
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "wtw_column_kernel" in kernels[0], kernels
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        for _ in range(100):
+            call()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
 
 
 def test_sharded_mi_on_two_gloo_ranks_sharing_the_card(dev):
@@ -347,6 +368,15 @@ def test_fit_multi_on_card_matches_individual_fits(dev):
                                    rtol=2e-3, atol=2e-3)
 
 
+class _InProcess:
+    """`chip_smoke.greedy_vs_oracle`'s worker pool, run in this process:
+    `apply_async(fn, args).get()` is fn(*args)."""
+
+    def apply_async(self, fn, args):
+        result = fn(*args)
+        return type("Done", (), {"get": staticmethod(lambda: result)})()
+
+
 def test_composite_greedy_selections_equal_f64_oracle(dev):
     """chip_smoke.py phase 12d at a small size: c2_composite_restarts'
     greedy MI (Matérn 5/2 × RBF over [pose | 3 features], fitted params)
@@ -355,10 +385,11 @@ def test_composite_greedy_selections_equal_f64_oracle(dev):
 
     out = chip_smoke.greedy_vs_oracle(dev, oracle, [
         "--preset", "c2_composite_restarts", "--rows", "12", "--cols", "15",
-        "--mode", "greedy", "--acq-rounds", "30", "--num-pilot", "10", "--iters", "60"])
+        "--mode", "greedy", "--acq-rounds", "30", "--num-pilot", "10", "--iters", "60"],
+        _InProcess())
     assert np.isfinite(out["rec"]["final_rmse"])
     assert out["launches"]["wtw_column"] >= 30
-    np.testing.assert_array_equal(out["selected"], out["oracle"])
+    np.testing.assert_array_equal(out["selected"], out["oracle_future"].get()[0])
 
 
 # ------------------------------------------------ the Cholesky kernel
@@ -798,10 +829,10 @@ def test_deep_kernel_greedy_selections_equal_f64_oracle(dev):
     out = chip_smoke.greedy_vs_oracle(dev, oracle, [
         "--preset", "c2_composite_restarts", "--rows", "12", "--cols", "15",
         "--mode", "greedy", "--acq-rounds", "30", "--num-pilot", "10", "--iters", "60",
-        "--deep-hidden", "16", "--deep-out", "4"])
+        "--deep-hidden", "16", "--deep-out", "4"], _InProcess())
     assert out["X_dim"] == 2 + 4 and np.isfinite(out["rec"]["final_rmse"])
     assert out["launches"]["wtw_column"] >= 30
-    np.testing.assert_array_equal(out["selected"], out["oracle"])
+    np.testing.assert_array_equal(out["selected"], out["oracle_future"].get()[0])
 
 
 def test_sgpr_on_card_matches_f64_oracle(dev):
