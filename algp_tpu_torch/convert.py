@@ -12,11 +12,15 @@ weights as a sequence of (W, b) pairs.
 
 `field_env_like` builds a port FieldEnv on the reference env's truth:
 the truth draws of the two packages come from different generators.
+`field_env_attrs` takes what it reads as plain picklable values, and
+`field_env_from_attrs` builds the env from them in another process (the
+ranks of a mesh episode).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Mapping
 
 import numpy as np
@@ -95,3 +99,25 @@ def field_env_like(ref_env, device=None) -> FieldEnv:
     env.test_mask = np.array(ref_env.test_mask, bool)
     env._rng.bit_generator.state = ref_env._rng.bit_generator.state
     return env
+
+
+_ENV_ARRAYS = ("traits", "features", "observed_traits", "observed_mask", "test_mask",
+               "_y_mean", "_y_std")
+
+
+def field_env_attrs(env) -> dict:
+    """What `field_env_like` reads of an env (the reference's or the
+    port's), as numpy arrays and plain values."""
+    out = {"cfg": {f.name: getattr(env.cfg, f.name) for f in dataclasses.fields(FieldConfig)},
+           "rng_state": env._rng.bit_generator.state}
+    out.update({a: np.array(getattr(env, a)) for a in _ENV_ARRAYS if hasattr(env, a)})
+    return out
+
+
+def field_env_from_attrs(attrs: Mapping, device=None) -> FieldEnv:
+    """`field_env_like` of the env that `field_env_attrs` read."""
+    rng = np.random.default_rng()
+    rng.bit_generator.state = attrs["rng_state"]
+    ref = types.SimpleNamespace(cfg=types.SimpleNamespace(**attrs["cfg"]), _rng=rng,
+                                **{a: attrs[a] for a in _ENV_ARRAYS if a in attrs})
+    return field_env_like(ref, device)

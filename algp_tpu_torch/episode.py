@@ -36,6 +36,17 @@ independent or the ICM family (`FitConfig.multi_fit`), and
 `EpisodeResult.trait_rmse` / `trait_rmse_test` score each against its own
 observation mask.
 
+The mesh (`Agent(..., mesh=parallel.make_mesh())`, every rank of a
+`torch.distributed` world running the same episode from the same seeds):
+the mi / entropy steps go through `parallel.sharded_episode` with the
+candidate axis split over the mesh's grid ranks.  The per-refit seed (W's
+rows, or the low-rank VT / dinv rows) is built on the ranks and kept there
+across the steps, the conditioning strip and the posterior fields are
+O(N/S) a rank, and each step is still one device→host read (a step
+without device metrics all-gathers its mean and variance first).  The
+fits and the host loop run whole on every rank; uniform / naive plan on
+the host as on one card.
+
 The deep feature kernel (`ExperimentConfig.deep`): every refit trains the
 MLP embedding with the kernel (`models.networks`) on the raw inputs, then
 re-embeds the candidate matrix (`_set_mlp`) before any seed or posterior
@@ -70,6 +81,8 @@ from algp_tpu_torch.config import (
 from algp_tpu_torch.field import FieldEnv, Sample
 from algp_tpu_torch.models import gp as gp_mod
 from algp_tpu_torch.models import multifit, networks, sparse_gp
+from algp_tpu_torch.parallel import sharded_episode as sep
+from algp_tpu_torch.parallel.sharded import all_gather
 from algp_tpu_torch.utils.checkpoint import EpisodeState
 from algp_tpu_torch.utils.metrics import MetricsLogger
 
@@ -142,10 +155,11 @@ class EpisodeResult:
 
 
 class Agent:
-    """Episode orchestrator on `env.device`."""
+    """Episode orchestrator on `env.device`; `mesh` (`parallel.make_mesh`)
+    plans the informative steps sharded over its grid ranks."""
 
     def __init__(self, env: FieldEnv, cfg: ExperimentConfig,
-                 logger: Optional[MetricsLogger] = None):
+                 logger: Optional[MetricsLogger] = None, mesh=None):
         self._multi_trait = env.num_traits > 1
         if self._multi_trait:
             multifit.check_multi_fit(cfg.fit.multi_fit)
@@ -173,6 +187,7 @@ class Agent:
                 )
         self.env = env
         self.cfg = cfg
+        self.mesh = mesh
         # a deep kernel: every device consumer sees the embedded candidates
         # under the effective spec; only the joint fit reads the raw ones
         self.spec = (cfg.kernel if cfg.deep is None
@@ -234,6 +249,8 @@ class Agent:
         self._base_noise_cache = None
         self._noise_vec_cache = None
         self._truth_cache = None
+        self._mesh_x_cache = None  # (the candidates, them mesh-padded)
+        self._mesh_truth_cache = None
         self._step_post_var = None
         self._step_site_var = None
         self._plan_profile: dict = {}
@@ -457,6 +474,24 @@ class Agent:
             self._truth_cache = (env.f_dev, obs, test)
         return self._truth_cache
 
+    def _mesh_x(self) -> torch.Tensor:
+        """The candidates padded for the mesh (`sharded_episode.mesh_pad`),
+        padded again only when `_set_mlp` re-embeds them."""
+        c = self._mesh_x_cache
+        if c is None or c[0] is not self._Xdev:
+            self._mesh_x_cache = (self._Xdev, sep.mesh_pad(self._Xdev, self.mesh.grid)[0])
+        return self._mesh_x_cache[1]
+
+    def _mesh_truth(self):
+        """`_truth` zero-padded to the mesh-padded length, on the device from
+        `_truth`'s tensors (nothing uploaded again): the padding lies
+        outside every mask."""
+        if self._mesh_truth_cache is None:
+            pad = self._mesh_x().shape[0] - self.env.n
+            self._mesh_truth_cache = tuple(torch.cat([a, a.new_zeros(pad)])
+                                           for a in self._truth())
+        return self._mesh_truth_cache
+
     def _host_bundle(self, nodes, cost, sites, mean, var) -> _PlanBundle:
         return _PlanBundle(
             nodes, cost, sites, mean, var,
@@ -551,12 +586,19 @@ class Agent:
                       path_utility=self._path_utility)
         step_args = (self.spec, st.params, self._Xdev, idx_pad, m, ns_pad,
                      y_pad, sets_d, sizes_d, costs_d)
+        if self.mesh is not None:
+            step_args = (self.mesh, self.spec, st.params, self._mesh_x(), *step_args[3:])
+            common.update(strategy=strat, n_valid=self.env.n)
         if self._use_device_metrics:
-            f_true, obs_m, test_m = self._truth()
-            if lowrank:
+            if self.mesh is not None:
+                out = sep.sharded_plan_episode_step_metrics(
+                    *step_args, *self._mesh_truth(), lr=fac, W=W, **common)
+            elif lowrank:
+                f_true, obs_m, test_m = self._truth()
                 out = acq_lr.plan_episode_step_lowrank_factors_metrics(
                     *step_args, fac, f_true, obs_m, test_m, **common)
             else:
+                f_true, obs_m, test_m = self._truth()
                 out = acq.plan_episode_step_metrics(
                     *step_args, f_true, obs_m, test_m, W, WT, strategy=strat,
                     **common)
@@ -575,7 +617,14 @@ class Agent:
                 mean_var=float(h[3]), var_sites=h[4:],
             )
 
-        if lowrank:
+        n = self.env.n
+        if self.mesh is not None:
+            best, mean, var, _ = sep.sharded_plan_episode_step(
+                *step_args, lr=fac, W=W, **common)
+            # the grid's blocks, in index order, trimmed to the field
+            both = all_gather(torch.stack([mean, var]).reshape(-1), self.mesh.grid_group)
+            mean, var = both.reshape(self.mesh.grid, 2, -1).permute(1, 0, 2).reshape(2, -1)[:, :n]
+        elif lowrank:
             best, mean, var, _ = acq_lr.plan_episode_step_lowrank_factors(
                 *step_args, fac, **common)
         else:
@@ -584,7 +633,6 @@ class Agent:
         # the step's one device→host copy
         h = torch.cat([best.to(torch.float32).reshape(1), mean, var]).cpu().numpy()
         prof["step_s"] = time.perf_counter() - t0
-        n = self.env.n
         best = int(h[0])
         mean, var = h[1: 1 + n], h[1 + n:]
         self._step_post_var = var  # for _sense('mixed')
@@ -640,10 +688,14 @@ class Agent:
         params = st.params if params is None else params
         cached = self._P_cache
         if cached is None or cached[0] is not params:
-            W, WT = acq.implicit_precision_seed(
-                self.spec, params, self._Xdev,
-                min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
-            )
+            noise = dict(min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult)
+            if self.mesh is not None:
+                # this rank's rows of W, by the distributed strip
+                # factorization; no WT (the step reads its own strip)
+                W, WT = sep.sharded_precision_seed(
+                    self.mesh, self.spec, params, self._mesh_x(), **noise), None
+            else:
+                W, WT = acq.implicit_precision_seed(self.spec, params, self._Xdev, **noise)
             self._P_cache = (params, W, WT)
         return self._P_cache[1], self._P_cache[2]
 
@@ -679,11 +731,19 @@ class Agent:
         M × M factors kept), cached per fitted params and queued without
         waiting; the noise model is derived on the device.  `params`
         overrides st.params (the lagged refit seeds its pending params).
-        The z-ensemble seeds each of its K designs: a list of K factors."""
+        The z-ensemble seeds each of its K designs: a list of K factors.
+        On a mesh: this rank's rows of the full seed
+        (`sharded_episode.sharded_lowrank_seed`; the ensemble's K stacked)."""
         params = st.params if params is None else params
         cached = self._lr_cache
         if cached is None or cached[0] is not params:
             z = self._lowrank_z()
+            if self.mesh is not None:
+                self._lr_cache = (params, sep.sharded_lowrank_seed(
+                    self.mesh, self.spec, params, self._mesh_x(), z,
+                    min_noise=self.cfg.fit.min_noise, nv_mult=self._nv_mult,
+                    n_valid=self.env.n))
+                return self._lr_cache[1]
 
             def seed(zk):
                 return acq_lr.lowrank_factors_seed(
@@ -867,5 +927,5 @@ class Agent:
                  else multifit.trait_inits(self.spec, fit, seed, self.device))
         M = multifit.multitrait_mean_fields(
             self.spec, fit, self._Xdev, np.asarray(st.sampled_idx), st.y_traits,
-            st.noise_scale, self.env.observed_traits, inits)
+            st.noise_scale, self.env.observed_traits, inits, mesh=self.mesh)
         return self.env.rmse_traits(M), self.env.rmse_traits(M, test_only=True)

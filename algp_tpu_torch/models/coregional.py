@@ -325,15 +325,17 @@ def fit_predict_icm(
     test_chunk: int = 65536,
     compute_var: bool = True,
     inits: Optional[ICMParams] = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor], ICMFitResult]:
     """`fit_icm`, the posterior and the per-trait prediction over `x_test`
     in chunks of `test_chunk` points (the last zero-padded to the chunk
     and trimmed, as the reference does; columns are independent).
     `compute_var=False` skips the T triangular solves a chunk and returns
     (means, None, result): the end-of-episode evaluation reads means
-    only."""
+    only.  `mesh` splits the fit's restarts as in `fit_icm`; the posterior
+    and the prediction run whole on every rank."""
     res = fit_icm(spec, cfg, x, Y, obs_mask, noise_scale, generator, rank=rank,
-                  inits=inits)
+                  inits=inits, mesh=mesh)
     post = posterior_icm(spec, res.params, x, Y, obs_mask, noise_scale,
                          min_noise=cfg.min_noise, jitter=cfg.jitter)
 

@@ -68,6 +68,7 @@ def multitrait_mean_fields(
     noise_scale: Optional[np.ndarray],
     observed_traits: np.ndarray,
     inits,
+    mesh=None,
 ) -> np.ndarray:
     """Per-trait posterior mean fields, (N, T) host array.
 
@@ -79,6 +80,10 @@ def multitrait_mean_fields(
                      independent family fits every measured cell)
     inits          : restart inits of the family, restart axis leading:
                      KernelParams ("independent") or ICMParams ("icm")
+    mesh           : `parallel.make_mesh()` of a mesh episode: the ICM
+                     splits its restarts over the mesh's 'restarts' axis
+                     (`coregional.fit_icm(mesh=)`); the independent
+                     families run whole on every rank
     """
     check_multi_fit(fitcfg.multi_fit)
     want = icm_mod.ICMParams if fitcfg.multi_fit == "icm" else KernelParams
@@ -100,7 +105,7 @@ def multitrait_mean_fields(
         # means only: the variance pass would add T (nT, N) solves for nothing
         mean, _, _ = icm_mod.fit_predict_icm(
             spec, fitcfg, x, on_dev(Y_np), X_all, obs, ns, rank=fitcfg.icm_rank,
-            compute_var=False, inits=inits)
+            compute_var=False, inits=inits, mesh=mesh)
         return mean.cpu().numpy()
 
     def mean_field(params, x, y, ns):

@@ -1,6 +1,5 @@
-"""The mesh dry run: the selection layer of the reference's
-`__graft_entry__.dryrun_multichip` on an n-rank `torch.distributed` world,
-at the reference's tiny shapes.
+"""The mesh dry run: the reference's `__graft_entry__.dryrun_multichip` on
+an n-rank `torch.distributed` world, at the reference's tiny shapes.
 
     python -m algp_tpu_torch.parallel.dryrun --world 4 --backend gloo --device cuda
 
@@ -11,17 +10,25 @@ Each rank runs, on the default mesh of the world (`sharded.make_mesh`):
   * MI with the distributed seed, equal to the single-rank MI;
   * sharded low-rank MI, equal to `greedy_select_lowrank`;
   * `sharded_fit_icm`, whose restarts' and winning NLLs must match the
-    single-rank `fit_icm` from the same inits within 1e-4.
-A failed check raises in the rank, and the launcher raises in the parent.
-On a world of 1 with NCCL on a CUDA card, the greedy loops also count
-their device→host syncs (`torch.cuda.set_sync_debug_mode`): none may
-happen.  Ranks sharing one card need gloo.  The reference's episode
-blocks are not part of this dry run.
+    single-rank `fit_icm` from the same inits within 1e-4;
+  * the config-5 episode blocks (`episode_checks`): five episodes on a
+    6 × 10 field, 3 steps each, through `episode.Agent(mesh=)` (exact W,
+    low-rank M = 16, per-sample utility with a z-ensemble of 2, then the
+    3-trait lagged-refit episode and its ICM twin with half the secondary
+    traits observed), each sampling the single-rank Agent's sites index
+    for index, the trait episodes' per-trait RMSE within 1e-5.
+A failed check raises in the rank, and the launcher raises in the parent,
+which also holds every rank's selections and sites equal.  On a world of
+1 with NCCL on a CUDA card, the greedy loops also count their
+device→host syncs (`torch.cuda.set_sync_debug_mode`): none may happen;
+and each plan call of the mesh episodes makes exactly one.  Ranks sharing
+one card need gloo.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import warnings
 
@@ -86,6 +93,71 @@ def _loop_syncs(mesh, spec, params, x, nv, pilot, z, kw) -> list:
     return sites
 
 
+def _episode_configs() -> list:
+    """The reference dry run's episode blocks (`__graft_entry__.py:159-279`):
+    (name, config) pairs on the 6 × 10 `c5_episode` field."""
+    from algp_tpu_torch.config import PRESETS, FitConfig
+
+    base = PRESETS["c5_episode"]
+    field = dataclasses.replace(base.field, num_rows=6, num_cols=10, seed=3)
+    ep = dataclasses.replace(base.episode, num_pilot=8, budget=18.0, samples_per_step=4,
+                             refit_every=2, device_metrics=True, seed=1)
+    fit = FitConfig(iters=10, restarts=2)
+    out = []
+    for name, m, utility, k in (("exact", 0, "per_cost", 1), ("lowrank", 16, "per_cost", 1),
+                                ("ensemble", 16, "per_sample", 2)):
+        acq = dataclasses.replace(base.acquisition, strategy="mi", num_inducing=m,
+                                  path_utility=utility, mi_ensemble=k)
+        out.append((name, dataclasses.replace(base, field=field, acquisition=acq, episode=ep,
+                                              fit=fit)))
+    traits = dataclasses.replace(
+        base, field=dataclasses.replace(field, num_traits=3),
+        acquisition=dataclasses.replace(base.acquisition, num_inducing=0),
+        episode=dataclasses.replace(ep, lagged_refit=True), fit=fit)
+    out.append(("traits_lagged", traits))
+    out.append(("traits_icm", dataclasses.replace(
+        traits, field=dataclasses.replace(traits.field, trait_corr=0.8, trait_obs_frac=0.5),
+        fit=FitConfig(iters=10, restarts=2, multi_fit="icm"))))
+    return out
+
+
+def episode_checks(mesh, device: str, count_reads: bool = False) -> dict:
+    """The episode blocks on this rank: each mesh episode against the
+    single-rank Agent on a copy of the same env.  `count_reads`: record
+    each mesh plan call's device→host reads (`plan_reads`), exactly one
+    each."""
+    from algp_tpu_torch.convert import field_env_like
+    from algp_tpu_torch.episode import Agent
+    from algp_tpu_torch.field import FieldEnv
+
+    out, reads = {}, []
+    for name, cfg in _episode_configs():
+        env = FieldEnv(cfg.field, cfg.kernel, device=device)
+        r1 = Agent(field_env_like(env, device), cfg).run(max_steps=3)
+        agent = Agent(field_env_like(env, device), cfg, mesh=mesh)
+        if count_reads:
+            agent._plan_and_metrics, sites = _count_syncs(agent._plan_and_metrics)
+        r2 = agent.run(max_steps=3)
+        if not np.array_equal(r1.state.sampled_idx, r2.state.sampled_idx):
+            raise AssertionError(f"mesh episode {name} sampled {r2.state.sampled_idx}, "
+                                 f"the single rank {r1.state.sampled_idx}")
+        if r1.trait_rmse is not None and not np.allclose(r1.trait_rmse, r2.trait_rmse,
+                                                         atol=1e-5):
+            raise AssertionError(f"mesh episode {name}: trait RMSE {r2.trait_rmse}, the "
+                                 f"single rank {r1.trait_rmse}")
+        out[f"episode_{name}_sites"] = r2.state.sampled_idx
+        if r2.trait_rmse is not None:
+            out[f"episode_{name}_trait_rmse"] = np.asarray(r2.trait_rmse)
+        if count_reads:
+            reads += [len(x) for x in sites]
+            if any(len(x) != 1 for x in sites):
+                raise AssertionError(f"mesh episode {name}: device->host reads per plan "
+                                     f"call {sites}, not one each")
+    if count_reads:
+        out["plan_reads"] = np.asarray(reads)
+    return out
+
+
 def dryrun_rank(device: str) -> dict:
     """The dry run on this rank (every rank of the world calls it)."""
     import torch.distributed as dist
@@ -137,7 +209,9 @@ def dryrun_rank(device: str) -> dict:
     _equal("low-rank", res.selected,
            lr.greedy_select_lowrank(spec, params, x_grid, nv, pilot, z, **kw).selected)
     out["lowrank_selected"] = res.selected.cpu().numpy()
-    if device == "cuda" and dist.get_backend() == "nccl" and dist.get_world_size() == 1:
+    nccl_1 = (device == "cuda" and dist.get_backend() == "nccl"
+              and dist.get_world_size() == 1)
+    if nccl_1:
         sites = _loop_syncs(mesh, spec, params, x_grid, nv, pilot, z, kw)
         out["loop_syncs"] = np.asarray([len(x) for x in sites])
         if any(sites):
@@ -156,6 +230,7 @@ def dryrun_rank(device: str) -> dict:
         raise AssertionError(f"sharded ICM NLLs {a} (best {float(f_s.nll)}) vs "
                              f"single-rank {b} (best {float(f_1.nll)})")
     out.update(icm_nlls=a, icm_nlls_single=b)
+    out.update(episode_checks(mesh, device, count_reads=nccl_1))
     return out
 
 
@@ -166,6 +241,11 @@ def dryrun_multichip(n: int, *, backend: str = "gloo", device=None) -> dict:
     dev = resolve_device(device).type
     outs = launch.run("algp_tpu_torch.parallel.dryrun:dryrun_rank", n, backend=backend,
                       device=dev, kwargs={"device": dev}, timeout=DEADLINE)
+    for key in outs[0]:
+        if key.endswith(("_selected", "_sites")):
+            for r, o in enumerate(outs[1:], 1):
+                if not np.array_equal(o[key], outs[0][key]):
+                    raise AssertionError(f"rank {r}'s {key} {o[key]}, rank 0's {outs[0][key]}")
     return outs[0]
 
 

@@ -150,6 +150,20 @@ def global_argmax(mesh: Mesh, s_loc: torch.Tensor, g0: int, n: int) -> torch.Ten
     return pmin(torch.where(lv == vmax, gj, n), mesh.grid_group)
 
 
+def psum_many(group, *parts: torch.Tensor) -> list:
+    """The group's sums of several f32 tensors in one all-reduce (of their
+    flat concatenation), each back in its shape; the tensors themselves
+    where the group is None."""
+    if group is None:
+        return list(parts)
+    flat = psum(torch.cat([p.reshape(-1) for p in parts]), group)
+    out, off = [], 0
+    for p in parts:
+        out.append(flat[off:off + p.numel()].reshape(p.shape))
+        off += p.numel()
+    return out
+
+
 def row_at(mesh: Mesh, j1: torch.Tensor, g0: int, *tensors: torch.Tensor) -> list:
     """Row j (a (1,) device index) of each (n_loc, ...) tensor of the
     grid's candidate-sharded state, on every grid rank: the owner's row,
@@ -161,13 +175,8 @@ def row_at(mesh: Mesh, j1: torch.Tensor, g0: int, *tensors: torch.Tensor) -> lis
     if mesh.grid_group is None:
         return rows
     own = (j1 >= g0) & (j1 < g0 + n_loc)
-    flat = torch.where(own, torch.cat([r.reshape(-1) for r in rows]), 0.0)
-    psum(flat, mesh.grid_group)
-    out, off = [], 0
-    for r in rows:
-        out.append(flat[off:off + r.numel()].reshape(r.shape))
-        off += r.numel()
-    return out
+    return psum_many(mesh.grid_group,
+                     *(torch.where(own, r, 0.0).reshape(r.shape) for r in rows))
 
 
 # ---------------------------------------------------------------------------

@@ -52,11 +52,11 @@ def _pilot_rows(mesh: Mesh, strip: Strip, idx, valid, *tensors):
     return out
 
 
-def lowrank_seed_strip(spec: KernelSpec, params: KernelParams, strip: Strip,
-                       z: torch.Tensor, pilot_idx, num_pilot: int, T: int) -> Precision:
-    """The low-rank precision P̃ = diag(dinv) − VT·VTᵀ − F·G on the strip,
-    the pilots deleted."""
-    mesh, dev, n_loc = strip.mesh, strip.x.device, strip.n_loc
+def lowrank_rows(spec: KernelSpec, params: KernelParams, strip: Strip,
+                 z: torch.Tensor) -> lr.LowRankPrecision:
+    """This rank's rows of the low-rank prior precision
+    P̃0 = diag(dinv) − VT·VTᵀ of one inducing design z (M, dim): VT
+    (n_loc, M), dinv and pdiag (n_loc,).  One M × M all-reduce."""
     M = z.shape[0]
     Ut = lr._seed_solve(lr._zz_factor(spec, params, z),
                         gram_kernel(spec, params, z, strip.x_loc), strip.n_valid)
@@ -64,10 +64,19 @@ def lowrank_seed_strip(spec: KernelSpec, params: KernelParams, strip: Strip,
     dfitc = torch.clamp_min(gram_diag(spec, params, strip.x_loc) - qdiag, 0.0) + strip.nv_loc
     dinv = 1.0 / dfitc
     A = Ut * dinv[None, :]  # (M, n_loc) = Uᵀ D⁻¹ on the strip
-    BM = lr._eye(M, dev) + psum(A @ Ut.T, mesh.grid_group)
+    BM = lr._eye(M, strip.x.device) + psum(A @ Ut.T, strip.mesh.grid_group)
     VT = lr._seed_solve(la.cholesky(BM), A, strip.n_valid).mT.contiguous()  # (n_loc, M)
     del Ut, A
-    pdiag = dinv - torch.sum(VT * VT, dim=1)
+    return lr.LowRankPrecision(VT=VT, dinv=dinv, pdiag=dinv - torch.sum(VT * VT, dim=1))
+
+
+def lowrank_seed_strip(spec: KernelSpec, params: KernelParams, strip: Strip,
+                       z: torch.Tensor, pilot_idx, num_pilot: int, T: int) -> Precision:
+    """The low-rank precision P̃ = diag(dinv) − VT·VTᵀ − F·G on the strip,
+    the pilots deleted."""
+    mesh, dev, n_loc = strip.mesh, strip.x.device, strip.n_loc
+    seed = lowrank_rows(spec, params, strip, z)
+    VT, dinv, pdiag = seed.VT, seed.dinv, seed.pdiag
     F = torch.zeros((n_loc, T), dtype=torch.float32, device=dev)
     G = torch.zeros((T, n_loc), dtype=torch.float32, device=dev)
     gidx = strip.gidx

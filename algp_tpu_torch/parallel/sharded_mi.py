@@ -268,16 +268,23 @@ def _first_valid(pilot_idx, num_pilot: int):
     return valid, valid.to(torch.float32), torch.where(valid, pilot_idx, 0)
 
 
+def distributed_w(spec, params, strip: Strip) -> torch.Tensor:
+    """This rank's (n_loc, N) rows of W = L⁻¹, L the factor of
+    K + diag(nv): the Gram kernel's strip with the noise on its diagonal,
+    then `dist_linalg`'s Cholesky and inverse.  O(N²/S) a rank."""
+    K_loc = gram_kernel(spec, params, strip.x_loc, strip.x)
+    K_loc[:, strip.rows].diagonal().add_(strip.nv_loc)
+    L_loc = dist_cholesky(strip.mesh, K_loc)
+    del K_loc  # freed before the inverse's strips are allocated
+    return dist_tri_inv(strip.mesh, L_loc)
+
+
 def seed_distributed(spec, params, strip: Strip, pilot_idx, num_pilot: int,
                      pilot_nv, T: int) -> StripState:
-    """The seed in strips: the Gram kernel's (n_loc, N) strip with the noise
-    on its diagonal, `dist_linalg`'s Cholesky and inverse, the pilots
+    """The seed in strips: W's rows (`distributed_w`), the pilots
     conditioned on the strip, the pilot delete with one (N, m) sum."""
     mesh, rows, dev = strip.mesh, strip.rows, strip.x.device
-    K_loc = gram_kernel(spec, params, strip.x_loc, strip.x)
-    K_loc[:, rows].diagonal().add_(strip.nv_loc)
-    W_loc = dist_tri_inv(mesh, dist_cholesky(mesh, K_loc))
-    del K_loc
+    W_loc = distributed_w(spec, params, strip)
     pdiag = psum(torch.sum(W_loc * W_loc, dim=0), mesh.grid_group)[rows].clone()
     st = strip_state(spec, params, strip, pilot_idx, num_pilot, pilot_nv, T)
     F = torch.zeros((strip.n_loc, T), dtype=torch.float32, device=dev)

@@ -134,7 +134,9 @@ script exits non-zero and never prints the final line:
                 `parallel.launch`; the times are of ranks sharing one card
                 (gloo stages through host memory), never a multi-card figure:
  15a. mesh_dryrun — `dryrun_multichip` on a world of 1 (NCCL: no
-                device→host sync in the greedy loops) and of 4 (gloo)
+                device→host sync in the greedy loops, one read a plan call
+                in the mesh episodes) and of 4 (gloo), its episode blocks
+                included (4 mesh episodes, each equal to the single rank's)
  15b. mesh_main — the main path's workload through `sharded_training_step`
                 on 2 × 2 (MI and entropy) from the restart inits of a
                 single-rank `fit_and_select`: winning NLL within 1e-4
@@ -156,12 +158,21 @@ script exits non-zero and never prints the final line:
  15e. mesh_icm — `sharded_fit_icm` (234 plots, 3 traits, 4 restarts) on
                 2 × 1 from a single-rank `fit_icm`'s inits: every NLL within
                 1e-4 relative
+ 15g. mesh_episode_exact — the `c5_10k` preset through `episode.Agent(mesh=)`
+                on 2 × 2 for MESH_EPISODE_STEPS steps (two refits): the exact
+                seed by the distributed strip factorization, W (5 120,
+                10 240) a rank; the sites equal the single-rank Agent's on
+                the same env, index for index; the ranks' fitted parameters
+                equal after every fit; plan ms, refit-step ms, per-rank peak
+                and strip, launches (the Gram kernel on every rank)
+ 15h. mesh_episode_lowrank — `c5_100k` (320², M = 1 024, FITC truth) on 1 × 4
+                for the same steps: VT (25 600, 1 024) a rank, the same checks
  11. kernels  — one JSON line for all kernels: launches on the paths, error
                 against the plain version, kernel / plain / library ms and
                 the card's bound
 Each path (main, episode, lowrank_main, episode_100k, episode_long,
 lowrank_1m, episode_1m, episode_4m, episode_4m_ens, episode_1m_long, the
-phases 12a-14d, the Cholesky seed path, the mesh paths 15b-15e in every
+phases 12a-14d, the Cholesky seed path, the mesh paths 15b-15h in every
 rank) runs with the kernel counts set to 0 just before it and read just
 after; phase 15 runs after phase 10 and prints before the kernels line
 (15f after 15e).  The line before the kernels line gives the
@@ -1933,6 +1944,7 @@ def phase_chol(dev, main_run, episode_run, card: str) -> dict:
 
 MESH_ROUNDS = 50
 MESH_REPS = 3  # timed runs after the counted warm-up
+MESH_EPISODE_STEPS = 8  # 15g / 15h: the pilot fit, refits at steps 4 and 8
 LAUNCH_KEYS = ("gram", "wtw_column", "cholesky", "gram_composite")
 
 
@@ -1975,7 +1987,9 @@ def mesh_rank(job: str, restarts_axis: int, data: dict) -> dict:
     def record(tag, launches, times, peak):
         out.update({f"{tag}/launches": launches, f"{tag}/ms": times, f"{tag}/peak": peak})
 
-    if job == "main":
+    if job == "episode":
+        out.update(mesh_episode_rank(mesh, dev, data))
+    elif job == "main":
         cfg = FitConfig(**data["cfg"])
         inits = kernel_params_from_numpy(data["inits"], dev)
         x, xp, yp, pilot = t(data["x"]), t(data["x_pilot"]), t(data["y_pilot"]), t(
@@ -2031,6 +2045,42 @@ def mesh_rank(job: str, restarts_axis: int, data: dict) -> dict:
     return out
 
 
+def mesh_episode_rank(mesh, dev, data: dict) -> dict:
+    """15g / 15h on one rank: the mesh Agent on the parent's env for
+    `max_steps` steps, the counts zeroed just before; each fit's
+    parameters recorded, so that the parent holds the ranks to one fit."""
+    from algp_tpu_torch.convert import field_env_from_attrs, kernel_params_to_numpy
+    from algp_tpu_torch.episode import Agent
+
+    agent = Agent(field_env_from_attrs(data["env"], dev), data["cfg"], mesh=mesh)
+    fits, fit_model = [], agent.fit_model
+
+    def fit(st, lagged=False):
+        res = fit_model(st, lagged)
+        fits.append(np.concatenate([np.ravel(v) for v in
+                                    kernel_params_to_numpy(res.params).values()]))
+        return res
+
+    agent.fit_model = fit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = agent.run(max_steps=data["max_steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = np.asarray([_counts()[k] for k in LAUNCH_KEYS])
+    seed = (agent._P_cache[1] if agent._P_cache is not None else agent._lr_cache[1].VT)
+    records = [h for h in res.history if h["phase"] in ("pilot", "plan")]
+    return {"episode/selected": res.state.sampled_idx, "episode/fit_params": np.stack(fits),
+            "episode/launches": launches, "episode/peak": torch.cuda.max_memory_allocated(),
+            "episode/wall_s": wall, "episode/strip": np.asarray(seed.shape),
+            "episode/steps": np.asarray([h["step"] for h in records]),
+            "episode/t_wall": np.asarray([h["t_wall"] for h in records]),
+            "episode/plan_s": np.asarray([h.get("plan_s", np.nan) for h in records]),
+            "episode/rmse_test": np.asarray([h["rmse_test"] for h in records])}
+
+
 def _mesh_run(job: str, world: int, restarts_axis: int, data: dict) -> tuple:
     """The job on a gloo world of `world` ranks sharing card 0: (rank
     outputs, seconds of the call, start-up included)."""
@@ -2041,7 +2091,7 @@ def _mesh_run(job: str, world: int, restarts_axis: int, data: dict) -> tuple:
                       device="cuda", timeout=600,
                       kwargs={"job": job, "restarts_axis": restarts_axis, "data": data})
     for key in outs[0]:
-        if key.endswith("/selected") or key.endswith("nlls"):
+        if key.endswith(("/selected", "nlls", "/fit_params")):
             for o in outs[1:]:
                 if not np.array_equal(o[key], outs[0][key]):
                     raise AssertionError(f"mesh {job}: ranks disagree on {key}")
@@ -2143,15 +2193,23 @@ def phase_mesh_dryrun(card: str) -> None:
         line = {"backend": backend, "world": world, "ranks_per_card": world,
                 "seconds": round(time.perf_counter() - t0, 3),
                 "mi_selected": rec["mi_selected"].tolist(),
-                "icm_nlls": rec["icm_nlls"].tolist()}
+                "icm_nlls": rec["icm_nlls"].tolist(),
+                "episode_sites": {k[len("episode_"):-len("_sites")]: len(v)
+                                  for k, v in rec.items() if k.endswith("_sites")}}
+        if len(line["episode_sites"]) != 5:
+            raise AssertionError(f"dry-run episode blocks: {sorted(line['episode_sites'])}")
         if backend == "nccl":
             syncs = rec["loop_syncs"].tolist()
             if len(syncs) != 4 or any(syncs):  # the four sharded greedy loops
                 raise AssertionError(f"device->host syncs in the NCCL world's loops: {syncs}")
-            line["loop_syncs"] = syncs
+            reads = rec["plan_reads"].tolist()
+            if not reads or any(r != 1 for r in reads):
+                raise AssertionError(f"mesh episode reads per plan call: {reads}")
+            line.update(loop_syncs=syncs, mesh_episode_reads_per_plan=reads)
         worlds.append(line)
     emit("mesh_dryrun", worlds=worlds, checks="selections = single rank (entropy, MI, "
-         "distributed seed, low-rank); ICM NLLs within 1e-4", card=card)
+         "distributed seed, low-rank); ICM NLLs within 1e-4; the 5 mesh episodes' sites = "
+         "single rank, trait RMSE within 1e-5", card=card)
 
 
 def phase_mesh_main(dev, ref: dict, oracle_ref, card: str, oracle_s: float) -> dict:
@@ -2307,6 +2365,86 @@ def phase_mesh_icm(dev, card: str) -> dict:
     return {"launches": stats["launches"]}
 
 
+def _episode_times(steps, t_wall, refit_every: int) -> dict:
+    """Plan ms (the median of the plan records' step walls that refit
+    nothing) and refit-step ms (those that refit), from the logger's
+    clock as `check_episode` reads it."""
+    step_ms = {int(s): (b - a) * 1e3 for s, a, b in zip(steps[1:], t_wall[:-1], t_wall[1:])}
+    refit = [v for k, v in step_ms.items() if k % refit_every == 0]
+    other = [v for k, v in step_ms.items() if k % refit_every]
+    return {"step_ms_median": float(np.median(other)) if other else None,
+            "refit_step_ms_median": float(np.median(refit)) if refit else None,
+            "step_ms": [round(v, 3) for v in step_ms.values()]}
+
+
+def phase_mesh_episode(dev, card: str, tag: str, preset: str, world: int,
+                       restarts_axis: int, strip) -> dict:
+    """15g / 15h: `preset` through `episode.Agent(mesh=)` on a gloo world of
+    `world` ranks sharing card 0, MESH_EPISODE_STEPS steps, against the
+    single-rank Agent on the same env at the same cut: the same sites; each
+    rank's seed strip `strip`; the Gram kernel launched on every rank."""
+    from algp_tpu_torch.config import PRESETS
+    from algp_tpu_torch.convert import field_env_attrs, field_env_like
+    from algp_tpu_torch.episode import Agent
+    from algp_tpu_torch.field import FieldEnv
+
+    cfg = PRESETS[preset]
+    env = FieldEnv(cfg.field, cfg.kernel, device=dev)
+    attrs = field_env_attrs(env)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = Agent(field_env_like(env, dev), cfg).run(max_steps=MESH_EPISODE_STEPS)
+    single_s = time.perf_counter() - t0
+    want = single.state.sampled_idx
+    single_plan = [h for h in single.history if h["phase"] in ("pilot", "plan")]
+    single_times = _episode_times([h["step"] for h in single_plan],
+                                  [h["t_wall"] for h in single_plan], cfg.episode.refit_every)
+    del env, single
+    torch.cuda.empty_cache()
+    data = {"kind": cfg.kernel.spatial_kind, "cfg": cfg, "env": attrs,
+            "max_steps": MESH_EPISODE_STEPS}
+    outs, secs = _mesh_run("episode", world, restarts_axis, data)
+    o = outs[0]
+    got = o["episode/selected"]
+    if not np.array_equal(got, want):
+        n = min(len(got), len(want))
+        r = int(np.argmax(np.append(got[:n] != want[:n], True)))
+        raise AssertionError(f"mesh {tag}: sites part from the single rank's at {r}: "
+                             f"{got[r:r + 10]} vs {want[r:r + 10]}")
+    strips = [tuple(x["episode/strip"].tolist()) for x in outs]
+    if any(s_ != tuple(strip) for s_ in strips):
+        raise AssertionError(f"mesh {tag}: seed strips {strips}, not {tuple(strip)}")
+    for r, x in enumerate(outs):
+        got_l = dict(zip(LAUNCH_KEYS, x["episode/launches"].tolist()))
+        if got_l["gram"] < 1 or got_l["cholesky"] or got_l["wtw_column"]:
+            raise AssertionError(f"mesh {tag}, rank {r}: launches {got_l}")
+    n_fits = len(o["episode/fit_params"])
+    if n_fits < 3:
+        raise AssertionError(f"mesh {tag}: {n_fits} fits, not the pilot's and two refits")
+    launches = sum(x["episode/launches"] for x in outs)
+    plan_ms = o["episode/plan_s"][1:] * 1e3
+    line = {"workload": f"{preset} through Agent(mesh=) on {restarts_axis} x "
+            f"{world // restarts_axis}, {MESH_EPISODE_STEPS} steps",
+            "vs_single_rank": {"equal": True, "samples": int(len(got))},
+            "fits": n_fits, "ranks_agree_on_fits": True,
+            "seed_strip_by_rank": strips, "plan_ms_median": float(np.median(plan_ms)),
+            **_episode_times(o["episode/steps"], o["episode/t_wall"], cfg.episode.refit_every),
+            "episode_wall_s": float(o["episode/wall_s"]),
+            "rmse_test_pilot": float(o["episode/rmse_test"][0]),
+            "rmse_test_last": float(o["episode/rmse_test"][-1]),
+            "single_rank": {"wall_s": round(single_s, 3), **single_times},
+            "backend": "gloo", "world": world, "ranks_per_card": world,
+            "peak_mem_GB_by_rank": [round(float(x["episode/peak"]) / 1e9, 3) for x in outs],
+            "launches": dict(zip(LAUNCH_KEYS, launches.tolist())),
+            "launches_by_rank": [dict(zip(LAUNCH_KEYS, x["episode/launches"].tolist()))
+                                 for x in outs],
+            "call_seconds": round(secs, 3),
+            "timing": f"{world} ranks sharing one card through gloo, not a multi-card figure",
+            "card": card}
+    emit(tag, **line)
+    return {"launches": line["launches"]}
+
+
 def eps_optimal(what: str, pairs) -> dict:
     """Each round's pick within 1e-5 relative of the round's best score
     under the f64 oracle (15b's tie rule, at every round); else fails."""
@@ -2322,9 +2460,9 @@ def eps_optimal(what: str, pairs) -> dict:
 
 
 def phase_mesh(dev, card: str, ref: dict, oracle_future, pool) -> dict:
-    """Phase 15, the mesh paths: 15a-15e in turn, then 15f, the f64
-    oracle's replay of 15b's MI and 15c's selections (in `pool`, while
-    15c-15e run); returns each path's launches (summed over its ranks)."""
+    """Phase 15, the mesh paths: 15a-15e, 15g and 15h in turn, then 15f, the
+    f64 oracle's replay of 15b's MI and 15c's selections (in `pool`, while
+    15c-15h run); returns each path's launches (summed over its ranks)."""
     torch.cuda.empty_cache()  # leave the card's memory to the ranks
     phase_mesh_dryrun(card)
     sel, traces, oracle_s = oracle_future.get()
@@ -2338,6 +2476,10 @@ def phase_mesh(dev, card: str, ref: dict, oracle_future, pool) -> dict:
     out = {"mesh_main": main["launches"], "mesh_dist_seed": dist_seed["launches"],
            "mesh_lowrank": phase_mesh_lowrank(dev, card)["launches"],
            "mesh_icm": phase_mesh_icm(dev, card)["launches"]}
+    out["mesh_episode_exact"] = phase_mesh_episode(
+        dev, card, "mesh_episode_exact", "c5_10k", 4, 2, (5120, 10240))["launches"]
+    out["mesh_episode_lowrank"] = phase_mesh_episode(
+        dev, card, "mesh_episode_lowrank", "c5_100k", 4, 1, (25600, 1024))["launches"]
     lines = {}
     for tag, fut in follow.items():
         pairs, secs = fut.get()
