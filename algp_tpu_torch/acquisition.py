@@ -29,8 +29,10 @@ value on the host; the episode reads the step's outputs in one copy.
 The low-rank (FITC) planner for larger grids is `acquisition_lowrank`;
 its per-set blocks go through `score_candidate_sets(P_lowrank=...)`.
 
-Not ported: `plan_path_step` / `complement_precision` (only the
-reference's tests call them); see ROADMAP.md.
+`plan_path_step` (a plan step from given noise vectors, without the
+posterior mean) and `complement_precision` (the dense (K + diag nv)⁻¹)
+are the reference's small-N counterparts, which the tests hold the
+implicit and fused paths against.
 """
 
 from __future__ import annotations
@@ -539,6 +541,64 @@ def path_set_argmax(
     return torch.argmax(torch.where(eligible, pos / k, -torch.inf))
 
 
+def plan_path_step(
+    spec: KernelSpec,
+    params: KernelParams,
+    x: torch.Tensor,
+    nv: torch.Tensor,
+    idx_pad: torch.Tensor,
+    count,
+    pilot_nv: torch.Tensor,
+    sets: torch.Tensor,
+    set_sizes: torch.Tensor,
+    costs: torch.Tensor,
+    W: Optional[torch.Tensor] = None,
+    WT: Optional[torch.Tensor] = None,
+    *,
+    strategy: str = "entropy",
+    path_utility: str = "per_cost",
+):
+    """A plan step from explicit noise vectors: conditioning on the sampled
+    set → (mi) the Schur corrections from W → joint set scores →
+    `path_set_argmax`.  idx_pad / pilot_nv: the sampled set padded to a
+    fixed capacity and its per-observation noise, of which the first
+    `count` slots are real; nv: every candidate's future-measurement
+    noise; W / WT: the seed (mi only).  Returns (best, post_var, scores),
+    all on the device."""
+    if strategy == "mi" and (W is None or WT is None):
+        raise ValueError(
+            "plan_path_step(strategy='mi') needs the implicit-precision "
+            "seed — build (W, WT) with implicit_complement_precision"
+        )
+    best, _, d, _, scores = _plan_step(
+        spec, params, x, nv, idx_pad, count, pilot_nv, sets, set_sizes, costs,
+        W, WT, strategy, path_utility)
+    return best, d, scores
+
+
+def _plan_step(spec, params, x, nv, idx_pad, count, pilot_nv, sets, set_sizes,
+               costs, W, WT, strategy, path_utility):
+    """The plan step shared by `plan_path_step` and `plan_episode_step`:
+    conditioning, (mi) the Schur corrections, set scores, the argmax.
+    Returns (best, C, d, LA, scores)."""
+    d0 = gram_diag(spec, params, x)
+    C, d, taken, LA = _batch_pilot_condition(
+        spec, params, x, pilot_nv, idx_pad, count, d0
+    )
+    if strategy == "mi":
+        F, ZT = implicit_corrections(W, WT, idx_pad, count)
+        scores = score_candidate_sets(
+            spec, params, x, nv, C, sets, set_sizes,
+            P_implicit=(WT, F, ZT, taken), strategy="mi",
+        )
+    else:
+        scores = score_candidate_sets(
+            spec, params, x, nv, C, sets, set_sizes, strategy="entropy",
+        )
+    best = path_set_argmax(scores, set_sizes, costs, path_utility=path_utility)
+    return best, C, d, LA, scores
+
+
 def plan_episode_step(
     spec: KernelSpec,
     params: KernelParams,
@@ -585,23 +645,11 @@ def plan_episode_step(
     valid = torch.arange(cap, device=dev) < count
     pnv = torch.where(valid, base * noise_scale_pad, 1.0)
     nv = torch.full((x.shape[0],), nv_mult, dtype=torch.float32, device=dev) * base
-    d0 = gram_diag(spec, params, x)
-    C, d, taken, LA = _batch_pilot_condition(
-        spec, params, x, pnv, idx_pad, count, d0
-    )
+    best, C, d, LA, scores = _plan_step(
+        spec, params, x, nv, idx_pad, count, pnv, sets, set_sizes, costs, W, WT,
+        strategy, path_utility)
     u = la.solve_triangular(LA, torch.where(valid, y_pad, 0.0))
     mean = C.T @ u
-    if strategy == "mi":
-        F, ZT = implicit_corrections(W, WT, idx_pad, count)
-        scores = score_candidate_sets(
-            spec, params, x, nv, C, sets, set_sizes,
-            P_implicit=(WT, F, ZT, taken), strategy="mi",
-        )
-    else:
-        scores = score_candidate_sets(
-            spec, params, x, nv, C, sets, set_sizes, strategy="entropy",
-        )
-    best = path_set_argmax(scores, set_sizes, costs, path_utility=path_utility)
     return best, mean, torch.clamp_min(d, 0.0), scores
 
 
@@ -650,6 +698,17 @@ def _seed(K: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     # WT materialised row-major, once per refit: the per-set blocks are
     # row gathers of it (W.mT would make each a strided column gather)
     return W, W.mT.contiguous()
+
+
+def complement_precision(
+    spec: KernelSpec, params: KernelParams, x: torch.Tensor, nv: torch.Tensor
+) -> torch.Tensor:
+    """(K(X, X) + diag nv)⁻¹ over all candidates, dense (N × N): K from the
+    Gram kernel, the inverse Wᵀ W from its factor (`la.spd_inverse_from_chol`).
+    The small-N counterpart of `implicit_complement_precision`, which
+    never materialises P."""
+    K = gram_kernel_with_noise(spec, params, x, nv / params.noise_var)
+    return la.spd_inverse_from_chol(la.cholesky(K))
 
 
 def implicit_complement_precision(

@@ -20,6 +20,8 @@
         --deep-hidden 16 --deep-out 4                         # deep kernel
     python -m algp_tpu_torch.cli --preset c5_episode --rows 8 --cols 12 \\
         --budget 24 --iters 10 --device cpu                   # on the CPU
+    python -m algp_tpu_torch.cli --preset c5_10k --budget 60 \\
+        --profile-dir /tmp/trace --plots /tmp/figs            # trace, figures
 
 Flags fill the typed configs (config.py), starting from `--preset`.  The
 run goes to the card unless `--device cpu` asks for the CPU.  Modes:
@@ -35,9 +37,11 @@ MLP embedding of the features jointly with the kernel; both modes then
 plan and select over the embedded candidates.
 A grid of 320 × 320 needs the FITC truth (`--preset c5_100k`): the dense
 truth's 102 400² factor does not fit on the card.
-
-Not ported: `--plots` and `--profile-dir` (the reference's matplotlib
-figures and jax.profiler trace; see ROADMAP.md).
+In episode mode, `--profile-dir DIR` writes a `torch.profiler` trace of run
+0 into DIR (`utils.profiling.trace`), and `--plots DIR` writes each run's
+field maps (`maps_run{run}.png`) and, at the end, the learning curves
+(`curves.png`) with matplotlib (`utils.plotting`, which raises if
+matplotlib is missing).  Greedy mode writes neither.
 """
 
 from __future__ import annotations
@@ -59,7 +63,9 @@ from algp_tpu_torch.episode import Agent
 from algp_tpu_torch.field import FEATURE_WARPS, FieldEnv
 from algp_tpu_torch.models import multifit
 from algp_tpu_torch.ops.kernels import KernelSpec
+from algp_tpu_torch.utils import plotting
 from algp_tpu_torch.utils.metrics import MetricsLogger
+from algp_tpu_torch.utils.profiling import trace
 
 
 def _round4(v):
@@ -147,6 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-jsonl", help="stream per-round metrics to file")
     p.add_argument("--checkpoint", help="save final episode state to .npz")
     p.add_argument("--resume", help="resume an episode from a checkpoint .npz")
+    p.add_argument("--plots", help="write field-map / curve figures here (matplotlib)")
+    p.add_argument("--profile-dir", help="capture a torch.profiler trace of run 0 here")
     return p
 
 
@@ -338,6 +346,7 @@ def main(argv=None) -> int:
 
     stream = open(args.metrics_jsonl, "w") if args.metrics_jsonl else None
     summaries = []
+    histories = {}
     try:
         for run in range(args.runs):
             fieldc = dataclasses.replace(cfg.field, seed=cfg.field.seed + run)
@@ -345,7 +354,16 @@ def main(argv=None) -> int:
             run_cfg = dataclasses.replace(cfg, field=fieldc, episode=epc)
             env = FieldEnv(fieldc, run_cfg.kernel, device=device)
             agent = Agent(env, run_cfg, MetricsLogger(stream))
-            result = agent.run(resume_from=resume_state if run == 0 else None)
+            with trace(args.profile_dir if run == 0 else None):
+                result = agent.run(resume_from=resume_state if run == 0 else None)
+            histories[f"run{run}"] = result.history
+            if args.plots:
+                os.makedirs(args.plots, exist_ok=True)
+                plotting.field_maps(
+                    env, result.mean, result.var,
+                    sampled_idx=result.state.sampled_idx,
+                    path=os.path.join(args.plots, f"maps_run{run}.png"),
+                )
             summaries.append({
                 "run": run,
                 "final_rmse": result.rmse,
@@ -371,6 +389,9 @@ def main(argv=None) -> int:
     finally:
         if stream is not None:
             stream.close()
+
+    if args.plots and histories:
+        plotting.learning_curves(histories, path=os.path.join(args.plots, "curves.png"))
 
     if len(summaries) > 1:
         rmses = [s["final_rmse"] for s in summaries]

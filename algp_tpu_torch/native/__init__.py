@@ -111,3 +111,19 @@ def enumerate_paths_raw(
     if k_max > 0:
         return nodes, offs, lens, costs, n, sets, sizes, ends
     return nodes, offs, lens, costs, n
+
+
+def enumerate_paths_native(
+    num_rows: int, num_cols: int, col_spacing: float, row_spacing: float,
+    start: int, budget: float, max_paths: int, max_turns: int,
+    min_cost_frac: float, goal: int = -1,
+) -> list[tuple[list[int], float]]:
+    """C path enumeration as [(node_seq, cost)], exactly as planning's
+    Python enumerator lists them.  Raises where the build or the
+    enumerator fails."""
+    nodes, offs, lens, costs, n = enumerate_paths_raw(
+        num_rows, num_cols, col_spacing, row_spacing, start, budget,
+        max_paths, max_turns, min_cost_frac, goal=goal,
+    )
+    return [(nodes[offs[k]: offs[k] + lens[k]].tolist(), float(costs[k]))
+            for k in range(n)]

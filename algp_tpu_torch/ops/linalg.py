@@ -6,9 +6,9 @@ factor comes back as NaN, as `jnp.linalg.cholesky` returns it, instead of
 raising — so no loop reads `info` on the host.  Leading batch dimensions
 are supported throughout (the fit's restarts).
 
-Not ported: the panel-blocked solves (`blocked_solve_triangular`: the
-card's memory holds the episode's whole (cap, N) right-hand side) and
-`spd_inverse*` (only the reference's tests call them); see ROADMAP.md.
+Not ported: the panel-blocked solve (`blocked_solve_triangular`, the
+reference's workaround for the TPU's memory): the card's memory holds the
+episode's whole (cap, N) right-hand side; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -117,6 +117,17 @@ def tri_inv(L: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L.mT, _eye_like(L), upper=True).mT
 
 
+def spd_inverse_from_chol(L: torch.Tensor) -> torch.Tensor:
+    """K⁻¹ = L⁻ᵀ L⁻¹ = WᵀW from the lower Cholesky factor, W = `tri_inv(L)`."""
+    W = tri_inv(L)
+    return W.mT @ W
+
+
+def spd_inverse(K: torch.Tensor) -> torch.Tensor:
+    """Dense SPD inverse via Cholesky and the triangular inverse."""
+    return spd_inverse_from_chol(cholesky(K))
+
+
 def solve_triangular_matmul(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """L⁻¹ B for a small lower factor and a huge right-hand side, as one
     matrix product against the explicit inverse (`tri_inv`): the
@@ -145,3 +156,16 @@ def chol_append_row(
     d = torch.sqrt(torch.clamp_min(k_ss - torch.dot(c, c), 1e-12))
     L_pad[m] = torch.where(idx == m, d, c)
     return L_pad
+
+
+def identity_padded_factor(n_max: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A fresh padded factor: the identity, ready for `chol_append_row`."""
+    return torch.eye(n_max, dtype=dtype, device=device)
+
+
+def pad_factor(L: torch.Tensor, n_max: int) -> torch.Tensor:
+    """An m×m factor embedded into the identity-padded n_max×n_max layout."""
+    m = L.shape[-1]
+    out = torch.eye(n_max, dtype=L.dtype, device=L.device)
+    out[:m, :m] = L
+    return out

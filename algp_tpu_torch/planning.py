@@ -9,8 +9,8 @@ scores in one batched call.  The engine is the native enumerator
 (`native/pathenum.c`); `_enumerate_paths_python` is its plain version,
 which the tests hold it equal to.
 
-`build_field_graph` (the reference's networkx graph) is used by nothing
-on the episode path and is not ported; networkx is never imported.
+`build_field_graph` gives the same traversal graph as a networkx graph;
+networkx is imported only inside it (nothing on the episode path uses it).
 """
 
 from __future__ import annotations
@@ -42,6 +42,32 @@ class PathBatch:
 
     def __len__(self):
         return len(self.node_seqs)
+
+
+def build_field_graph(env):
+    """Row-crop traversal graph (a `networkx.Graph`): along-row edges
+    everywhere, between-row edges only at the two headland columns
+    (col 0 and col num_cols-1), weighted by the spacings."""
+    try:
+        import networkx as nx
+    except ImportError as e:
+        raise ImportError(
+            "planning.build_field_graph needs networkx, which is not installed "
+            "(the episode's planning does not)"
+        ) from e
+    g = nx.Graph()
+    nr, nc = env.num_rows, env.num_cols
+    cs, rs = env.cfg.col_spacing, env.cfg.row_spacing
+    for r in range(nr):
+        for c in range(nc):
+            i = r * nc + c
+            g.add_node(i)
+            if c + 1 < nc:
+                g.add_edge(i, i + 1, weight=cs)
+    for r in range(nr - 1):
+        for c in (0, nc - 1):
+            g.add_edge(r * nc + c, (r + 1) * nc + c, weight=rs)
+    return g
 
 
 def _row_segments(env, start: int, budget: float, max_turns: int):
@@ -133,14 +159,12 @@ def enumerate_paths(
     (min_cost_frac is ignored; empty = unreachable within the budget).
     Deterministic: stable enumeration order, longest first, ties broken
     by node sequence.  Runs the native enumerator."""
-    nodes, offs, lens, costs, n = native.enumerate_paths_raw(
+    return native.enumerate_paths_native(
         env.num_rows, env.num_cols,
         float(env.cfg.col_spacing), float(env.cfg.row_spacing),
         int(start), float(budget), max_paths, max_turns, min_cost_frac,
         goal=-1 if goal is None else int(goal),
     )
-    return [(nodes[offs[k]: offs[k] + lens[k]].tolist(), float(costs[k]))
-            for k in range(n)]
 
 
 def paths_to_batch(

@@ -167,15 +167,34 @@ script exits non-zero and never prints the final line:
                 and strip, launches (the Gram kernel on every rank)
  15h. mesh_episode_lowrank — `c5_100k` (320², M = 1 024, FITC truth) on 1 × 4
                 for the same steps: VT (25 600, 1 024) a rank, the same checks
+ 16. the tools slice, after phase 15:
+ 16a. tools_profile — `c5_10k --budget 60` through the CLI untraced and with
+                `--profile-dir`: the summaries equal, the trace parses, its
+                CUDA kernel events (CUPTI) include the hand Gram kernel by
+                name (launched through the ctypes library); the trace's
+                size, kernel events and hand kernels found
+ 16b. tools_plots — the same run with `--plots`: where matplotlib imports,
+                `maps_run0.png` and `curves.png` not empty; in a process
+                that cannot import it, the CLI exits non-zero with the
+                plotting error (`"matplotlib"` says which the card has)
+ 16c. tools_debug — `utils.debug.checked` names a CUDA op that made a NaN
+                and passes the Gram kernel's K + σ²I at 10 240;
+                `assert_finite_tree` on the main path's seed;
+                `fit_health_report` on phase 6's fit
+ 16d. quickstart — examples/quickstart_torch.py as a subprocess: every
+                milestone, exact resume, section 9's world of 2 ranks
+ 16e. tools_reference_api — `complement_precision` at 10 240 against its
+                plain version and WᵀW of the seed; `plan_path_step` against
+                `plan_episode_step` at the cut c5_10k's step 2
  11. kernels  — one JSON line for all kernels: launches on the paths, error
                 against the plain version, kernel / plain / library ms and
                 the card's bound
 Each path (main, episode, lowrank_main, episode_100k, episode_long,
 lowrank_1m, episode_1m, episode_4m, episode_4m_ens, episode_1m_long, the
 phases 12a-14d, the Cholesky seed path, the mesh paths 15b-15h in every
-rank) runs with the kernel counts set to 0 just before it and read just
-after; phase 15 runs after phase 10 and prints before the kernels line
-(15f after 15e).  The line before the kernels line gives the
+rank, the tools paths 16a-16e, 16d in its own process) runs with the
+kernel counts set to 0 just before it and read just after; phase 15 runs
+after phase 10 (15f after 15e), then phase 16, before the kernels line.  The line before the kernels line gives the
 script's total seconds.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -865,7 +884,8 @@ def phase_main(dev, oracle, card: str) -> dict:
     return {"env": env, "x_pilot": x_pilot, "y_pilot": y_pilot,
             "median_ms": float(np.median(times)),
             "pilot_j": pilot_j, "launches": launches, "params": p,
-            "episode": episode, "selected": sel, "min_noise": fitcfg.min_noise}
+            "episode": episode, "selected": sel, "min_noise": fitcfg.min_noise,
+            "fit": fit_res}
 
 
 def phase_layers(dev, main) -> None:
@@ -2490,6 +2510,278 @@ def phase_mesh(dev, card: str, ref: dict, oracle_future, pool) -> dict:
     return out
 
 
+# phase 16, the tools slice: c5_10k cut to a short budget (the trace stays
+# small), the CLI's --profile-dir and --plots, utils.debug, the quickstart
+# twin, and the reference's dense functions
+TOOLS_ARGS = EPISODE_ARGS + ["--budget", "60"]
+# the small run whose --plots must fail without matplotlib
+TOOLS_SMALL_ARGS = ["--preset", "c5_episode", "--rows", "6", "--cols", "10", "--budget",
+                    "20", "--num-pilot", "6", "--iters", "10"]
+HAND_KERNELS = ("gram_kernel", "composite_kernel", "wtw_column_kernel", "chol_")
+QUICKSTART_ARGS: list = []  # the example's command line (default: the card)
+
+
+def _trace_kernels(trace_dir: Path) -> dict:
+    """The one `*.pt.trace.json` under trace_dir: its size, kernel events and
+    the hand kernels among them (count by kernel name)."""
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--profile-dir wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    hand: dict = {}
+    for k in kernels:
+        tag = next((h for h in HAND_KERNELS if h in k), None)
+        if tag is not None:
+            hand[tag] = hand.get(tag, 0) + 1
+    return {"trace_bytes": files[0].stat().st_size, "events": len(events),
+            "kernel_events": len(kernels), "hand_kernels": hand,
+            "hand_kernel_names": sorted({k[:80] for k in kernels
+                                         if any(h in k for h in HAND_KERNELS)})}
+
+
+def phase_tools_profile(dev, card: str) -> tuple:
+    """16a: the cut c5_10k through the CLI untraced, then with --profile-dir:
+    the summaries equal, the trace parses and its kernel events (CUPTI) hold
+    the hand Gram kernel, launched through ctypes, by name.  Returns (the
+    runs' launches, the untraced run with its agent at step 2)."""
+    import tempfile
+
+    from algp_tpu_torch import cli
+    from algp_tpu_torch.ops import gram as G
+
+    plain = run_episodes(dev, TOOLS_ARGS, "tools_episode", warm=False, capture_step=2)
+    window = {}  # the Gram launches inside the traced region (not the truth's)
+    orig_trace = cli.trace
+
+    @contextlib.contextmanager
+    def counted_trace(log_dir):
+        with orig_trace(log_dir):
+            g0 = G.LAUNCHES
+            yield
+            window["gram"] = G.LAUNCHES - g0
+
+    cli.trace = counted_trace
+    try:
+        with tempfile.TemporaryDirectory(prefix="algp_trace_") as tmp:
+            t0 = time.perf_counter()
+            traced = run_episodes(dev, TOOLS_ARGS + ["--profile-dir", tmp],
+                                  "tools_traced", warm=False)
+            traced_s = time.perf_counter() - t0
+            trace = _trace_kernels(Path(tmp))
+    finally:
+        cli.trace = orig_trace
+    if traced["summary"] != plain["summary"]:
+        raise AssertionError(f"--profile-dir changed the run: {traced['summary']} vs "
+                             f"{plain['summary']}")
+    if not np.isfinite([plain["summary"][k] for k in ("final_rmse", "final_rmse_test",
+                                                      "mean_var")]).all():
+        raise AssertionError(f"non-finite summary {plain['summary']}")
+    # CUPTI records the kernels launched through the ctypes library (one
+    # event a launch in calls so far; the profiler can drop device records
+    # as outside its window late in a long process, so the count is
+    # reported beside the launches, not held to them)
+    if trace["hand_kernels"].get("gram_kernel", 0) < 1:
+        raise AssertionError(f"the trace holds no hand Gram kernel: {trace}, "
+                             f"{window['gram']} launches in the traced region")
+    emit("tools_profile", workload="c5_10k --budget 60 via cli.main, untraced and "
+         "with --profile-dir", steps=plain["summary"]["steps"], summary=plain["summary"],
+         summaries_equal=True, untraced_s=plain["wall_s"], traced_s=traced_s, **trace,
+         gram_launches_traced_region=window["gram"],
+         gram_launches_traced_run=traced["launches"]["gram"], card=card)
+    return {"tools_episode": plain["launches"], "tools_traced": traced["launches"]}, plain
+
+
+def _blocked_plots(tmp: str) -> dict:
+    """The CLI in a process where matplotlib cannot be imported: it must exit
+    non-zero with utils.plotting's error."""
+    code = ("import sys\n"
+            "sys.modules['matplotlib'] = None\n"
+            "from algp_tpu_torch import cli\n"
+            "sys.exit(cli.main(sys.argv[1:]))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, *TOOLS_SMALL_ARGS, "--plots", tmp],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    err = proc.stderr.strip().splitlines()
+    if proc.returncode == 0 or not err or "--plots" not in err[-1]:
+        raise AssertionError(f"--plots without matplotlib: exit {proc.returncode}, "
+                             f"{proc.stderr[-2000:]}")
+    return {"exit_code": proc.returncode, "error": err[-1][:200]}
+
+
+def phase_tools_plots(dev, card: str) -> dict:
+    """16b: the cut run with --plots: the PNGs exist and are not empty where
+    matplotlib imports; in a process where it cannot (the card's machine,
+    or one that blocks it) the CLI exits non-zero with the plotting error."""
+    import importlib.util
+    import tempfile
+
+    have = importlib.util.find_spec("matplotlib") is not None
+    out, launches = {"matplotlib": have}, {}
+    with tempfile.TemporaryDirectory(prefix="algp_plots_") as tmp:
+        if have:
+            run = run_episodes(dev, TOOLS_ARGS + ["--plots", tmp], "tools_plots",
+                               warm=False)
+            sizes = {f.name: f.stat().st_size for f in sorted(Path(tmp).glob("*.png"))}
+            if set(sizes) != {"maps_run0.png", "curves.png"} or min(sizes.values()) == 0:
+                raise AssertionError(f"--plots wrote {sizes}")
+            out.update(pngs=sizes, wall_s=run["wall_s"])
+            launches["tools_plots"] = run["launches"]
+        out["without_matplotlib"] = _blocked_plots(str(Path(tmp) / "blocked"))
+    emit("tools_plots", **out, card=card)
+    return launches
+
+
+def phase_tools_debug(dev, main: dict, card: str) -> dict:
+    """16c: utils.debug on the card: `checked` names a CUDA op that made a NaN
+    and passes the Gram kernel's K + σ²I at the main path's 10 240;
+    `assert_finite_tree` on the main path's seed; `fit_health_report` on
+    phase 6's fit."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch.ops import gram as G
+    from algp_tpu_torch.ops.kernels import KernelSpec
+    from algp_tpu_torch.utils import debug
+
+    def f(x):
+        y = torch.sqrt(x - 3.0)  # NaN below 3, mid-way
+        return torch.exp(y).sum()
+
+    _zero_counts()
+    err, _ = debug.checked(f)(torch.arange(8.0, device=dev))
+    try:
+        err.throw()
+        raise AssertionError("checked() let a NaN through")
+    except FloatingPointError as e:
+        if "aten.sqrt" not in str(e):
+            raise AssertionError(f"checked() named the wrong op: {e}") from e
+        nan_msg = str(e)
+    spec, p, x = KernelSpec("rbf", ds=2), main["params"], main_grid(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    err, K = debug.checked(G.gram_kernel_with_noise)(spec, p, x)
+    checked_s = time.perf_counter() - t0
+    err.throw()
+    del K
+    W, WT = acq.implicit_precision_seed(spec, p, x, min_noise=main["min_noise"])
+    debug.assert_finite_tree({"params": p, "seed": (W, WT)}, "main_seed")
+    del W, WT
+    report = debug.fit_health_report(main["fit"])
+    if report["restarts"] != 4 or report["diverged_restarts"] != 0 \
+            or not report["nll_improvement"] > 0:
+        raise AssertionError(f"fit health {report}")
+    launches = _counts()
+    if launches["gram"] != 2:  # the checked K, the seed's K
+        raise AssertionError(f"tools_debug launches {launches}")
+    emit("tools_debug", nan_error=nan_msg, checked_gram_n=x.shape[0],
+         checked_gram_s=checked_s, seed_finite=True, fit_health=report, card=card)
+    return {"tools_debug": launches}
+
+
+def phase_quickstart(card: str) -> dict:
+    """16d: examples/quickstart_torch.py on the card, as a subprocess: every
+    milestone prints, the resume is exact, section 9 runs a world of 2 whose
+    sites equal the single rank's; the launches are its own process's (the
+    ranks' are not counted)."""
+    code = ("import json, runpy, sys\n"
+            "sys.argv = sys.argv[1:]  # the example's own command line\n"
+            "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+            "from algp_tpu_torch.ops import chol as C, gram as G, updates as U\n"
+            "print(json.dumps({'gram': G.LAUNCHES, 'wtw_column': U.LAUNCHES,\n"
+            "                  'cholesky': C.LAUNCHES,\n"
+            "                  'gram_composite': G.COMPOSITE_LAUNCHES}))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code,
+                           str(ROOT / "examples" / "quickstart_torch.py"), *QUICKSTART_ARGS],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"quickstart exit {proc.returncode}: {proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    launches, out = json.loads(lines[-1]), "\n".join(lines[:-1])
+    for label in [str(i) for i in range(1, 17) if i not in (3, 4)] + ["3/4"]:
+        if not re.search(rf"^{re.escape(label)}\. ", out, re.M):
+            raise AssertionError(f"quickstart section {label} never printed:\n{out}")
+    for want in ("interrupted@3 + resume ≡ uninterrupted: True",
+                 "on a world of 2 ranks (paths ≡ single-device: True)"):
+        if want not in out:
+            raise AssertionError(f"quickstart: no {want!r}:\n{out}")
+    if launches["gram"] < 1 or launches["wtw_column"] < 1 or launches["cholesky"]:
+        raise AssertionError(f"quickstart launches {launches}")
+    emit("quickstart", seconds=secs, sections=16, lines=lines[:-1], launches=launches,
+         card=card)
+    return {"quickstart": launches}
+
+
+def phase_tools_reference_api(dev, main: dict, plain_run: dict, card: str) -> dict:
+    """16e: `complement_precision` at the main path's 10 240 candidates
+    against its plain version (the plain Gram) and against WᵀW of
+    `implicit_precision_seed`; `plan_path_step` against `plan_episode_step`
+    at the state the cut c5_10k run planned from at step 2."""
+    from algp_tpu_torch import acquisition as acq
+    from algp_tpu_torch.ops import gram as G
+    from algp_tpu_torch.ops import linalg as la
+    from algp_tpu_torch.ops.kernels import KernelSpec
+
+    _zero_counts()
+    spec, p, x = KernelSpec("rbf", ds=2), main["params"], main_grid(dev)
+    base = torch.clamp_min(torch.exp(2.0 * p.log_noise), main["min_noise"] ** 2)
+    nv = torch.ones(x.shape[0], device=dev) * base
+    t0 = time.perf_counter()
+    P = acq.complement_precision(spec, p, x, nv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    K = G.gram_reference(spec, p, x, x)
+    K.diagonal().add_(p.noise_var * (nv / p.noise_var))
+    scale = P.abs().max()
+    out = {"n": x.shape[0], "complement_precision_s": secs,
+           "max_abs_P": float(scale),
+           "vs_plain_rel": float((P - la.spd_inverse_from_chol(la.cholesky(K))).abs().max()
+                                 / scale)}
+    del K
+    W, _ = acq.implicit_precision_seed(spec, p, x, min_noise=main["min_noise"])
+    out["vs_seed_wtw_rel"] = float((P - W.mT @ W).abs().max() / scale)
+    del P, W
+    if not (out["vs_plain_rel"] <= 1e-6 and out["vs_seed_wtw_rel"] <= 1e-6):
+        raise AssertionError(f"complement_precision {out}")
+    # plan_path_step: the episode's step with its noise vectors spelled out
+    agent, st = plain_run["agent"], plain_run["plan_state"]
+    args, common, live = plan_inputs(agent, st, dev)
+    sp, params, X, idx_pad, m, ns_pad, y_pad, sets, sizes, costs = args
+    W, WT = acq.implicit_precision_seed(sp, params, X, min_noise=common["min_noise"],
+                                        nv_mult=common["nv_mult"])
+    b_e, _, d_e, s_e = acq.plan_episode_step(*args, W, WT, strategy="mi", **common)
+    base = torch.clamp_min(torch.exp(2.0 * params.log_noise), common["min_noise"] ** 2)
+    valid = torch.arange(idx_pad.shape[0], device=dev) < m
+    pnv = torch.where(valid, base * ns_pad, 1.0)
+    nvp = torch.full((X.shape[0],), common["nv_mult"], device=dev) * base
+    b_p, d_p, s_p = acq.plan_path_step(sp, params, X, nvp, idx_pad, m, pnv, sets, sizes,
+                                       costs, W, WT, strategy="mi",
+                                       path_utility=common["path_utility"])
+    same = (int(b_p) == int(b_e), torch.equal(s_p, s_e),
+            torch.equal(torch.clamp_min(d_p, 0.0), d_e))
+    out["plan_path_step"] = {"step": st.step, "n": X.shape[0], "cap": idx_pad.shape[0],
+                             "sampled": int(m), "paths": int(live.sum()),
+                             "best": int(b_p), "best_equal": same[0],
+                             "scores_equal": same[1], "post_var_equal": same[2]}
+    if not all(same):
+        raise AssertionError(f"plan_path_step vs plan_episode_step: {out['plan_path_step']}")
+    launches = _counts()
+    emit("tools_reference_api", **out, launches=launches, card=card)
+    return {"tools_reference_api": launches}
+
+
+def phase_tools(dev, card: str, main: dict) -> dict:
+    """Phase 16, 16a-16e in turn; returns each path's launches."""
+    t0 = time.perf_counter()
+    paths, plain = phase_tools_profile(dev, card)
+    paths.update(phase_tools_plots(dev, card))
+    paths.update(phase_tools_debug(dev, main, card))
+    paths.update(phase_quickstart(card))
+    paths.update(phase_tools_reference_api(dev, main, plain, card))
+    emit("tools", seconds=time.perf_counter() - t0, card=card)
+    return paths
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -2558,6 +2850,7 @@ def main() -> None:
     finally:
         pool.terminate()
         pool.join()
+    tools = phase_tools(dev, smi, main_run)
     paths = {"main": main_run["launches"], "episode": episode_run["launches"],
              "lowrank_main": lowrank_run["launches"],
              "episode_100k": episode_100k["launches"],
@@ -2569,7 +2862,7 @@ def main() -> None:
              "episode_1m_long": episode_1m_long["launches"],
              **{tag: r["launches"] for tag, r in field_runs.items()},
              **{tag: r["launches"] for tag, r in greedy.items()},
-             "chol_seed": chol.pop("launches"), **mesh}
+             "chol_seed": chol.pop("launches"), **mesh, **tools}
 
     def entry(name, source, replaces, stats):
         by_path = {k: v[name] for k, v in paths.items()}

@@ -1,7 +1,7 @@
 """algp_tpu_torch stands alone: it never imports JAX, networkx or pandas
-(the machine with the card has neither JAX nor networkx, and pandas is
-not known to be there), nor Triton at import, and it keeps out of the
-paths that would not be a port of the reference's kernels."""
+at import (the machine with the card has neither JAX nor networkx, and
+pandas is not known to be there), nor Triton or matplotlib, and it keeps
+out of the paths that would not be a port of the reference's kernels."""
 
 import io
 import subprocess
@@ -27,9 +27,11 @@ def test_import_pulls_in_no_jax():
         "import algp_tpu_torch.models.coregional, algp_tpu_torch.models.networks\n"
         "import algp_tpu_torch.parallel, algp_tpu_torch.parallel.launch\n"
         "import algp_tpu_torch.parallel.dryrun\n"
+        "import algp_tpu_torch.utils.debug, algp_tpu_torch.utils.profiling\n"
+        "import algp_tpu_torch.utils.plotting\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'optax', 'algp_tpu', 'triton', 'networkx', 'pandas')]\n"
+        "'optax', 'algp_tpu', 'triton', 'networkx', 'pandas', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

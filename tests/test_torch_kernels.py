@@ -133,8 +133,11 @@ def test_init_params_match_reference():
     kw = dict(ls_spatial=2.5, ls_feature=0.7, outputscale=1.3, noise=0.15)
     want = _np_params(jspec.init_params(**kw))
     got = tspec.init_params(**kw)
+    # the logs come from two libms (torch's and XLA's), which round some f32
+    # inputs to neighbouring floats (log(1.3): 0.2623642 against 0.26236424),
+    # so the values agree to one ulp, not bit for bit
     for name, v in want.items():
-        np.testing.assert_allclose(getattr(got, name).numpy(), v, rtol=1e-7)
+        np.testing.assert_array_max_ulp(getattr(got, name).numpy(), v, maxulp=1)
     torch.testing.assert_close(got.noise_var, torch.tensor(0.15**2), rtol=1e-6, atol=0)
     g1 = tspec.init_params(torch.Generator().manual_seed(3), perturb=0.5, **kw)
     g2 = tspec.init_params(torch.Generator().manual_seed(3), perturb=0.5, **kw)

@@ -1,0 +1,275 @@
+"""The last public functions of algp_tpu in algp_tpu_torch, each against
+the reference on the CPU (the reference's Gram in Pallas interpret mode),
+and an AST walk that fails on any public name of algp_tpu the port lacks
+outside the deliberate omissions below.
+
+Tolerances: the dense complement precision within 1e-4 of its largest
+entry of the reference's (two f32 inverses of the same matrix) and of the
+f64 oracle's inverse; `plan_path_step`'s scores and variances within
+rtol / atol 1e-5 of the port's own unfused pipeline (the reference's
+test_acquisition bound) and 1e-4 of the reference's, with the same best
+set; the SPD inverses within 1e-3 of the largest entry of the f64 inverse
+(cond 50, the reference's bound); padded factors, path lists and graphs
+equal."""
+
+import ast
+import dataclasses
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from algp_tpu import acquisition as jacq
+from algp_tpu import native as jnative
+from algp_tpu import planning as jplanning
+from algp_tpu.config import FieldConfig as JFieldConfig
+from algp_tpu.field import FieldEnv as JFieldEnv
+from algp_tpu.ops import linalg as jla
+from algp_tpu.ops.kernels import KernelParams, KernelSpec
+from algp_tpu_torch import acquisition as tacq
+from algp_tpu_torch import native, planning
+from algp_tpu_torch.config import FieldConfig
+from algp_tpu_torch.convert import kernel_params_from_numpy
+from algp_tpu_torch.field import FieldEnv
+from algp_tpu_torch.ops import gram as tgram
+from algp_tpu_torch.ops import kernels as tk
+from algp_tpu_torch.ops import linalg as tla
+
+import oracle
+
+ROOT = Path(__file__).resolve().parent.parent
+
+#: public names of algp_tpu the port leaves out on purpose (ROADMAP.md)
+OMITTED = {
+    # the kernel-named entry points: the port's kernels under its own names
+    # (ops.gram.gram_kernel*, ops.updates.wtw_column*, ops.chol.cholesky)
+    "ops/gram.py": {"gram_pallas", "gram_pallas_with_noise"},
+    "ops/updates.py": {"wtw_column_streamed", "wtw_column_pipelined"},
+    "ops/pallas_chol.py": {"cholesky_pallas", "cholesky_pallas_la"},
+    # the TPU's HBM panelling workaround: the card holds the whole RHS
+    "ops/linalg.py": {"blocked_solve_triangular"},
+    # aliases removed for one name a function (dist_cholesky / dist_tri_inv)
+    "parallel/dist_linalg.py": {"dist_cholesky_strip", "dist_tri_inv_strip"},
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _np_params(p):
+    return {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}
+
+
+def setup_field(rng, n, ls=2.0, os_=1.5, noise=0.15):
+    """tests/test_acquisition.py:setup_field for both packages."""
+    x = rng.uniform(0, 12, (n, 2))
+    params = KernelParams(
+        log_ls_spatial=jnp.full((2,), np.log(ls), jnp.float32),
+        log_ls_feature=jnp.zeros((0,), jnp.float32),
+        log_outputscale=jnp.asarray(np.log(os_), jnp.float32),
+        log_noise=jnp.asarray(np.log(noise), jnp.float32),
+    )
+    K = oracle.gram(x, x, ls_spatial=ls, outputscale=os_)
+    return params, kernel_params_from_numpy(_np_params(params)), x, K, noise**2
+
+
+def _close_to(got, want, rel):
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def test_complement_precision_matches_reference_and_oracle(rng):
+    params, tparams, x, K, nv = setup_field(rng, n=120)
+    nvec = np.full(120, nv, np.float32)
+    nvec[::7] *= 3.0  # heteroscedastic
+    before = tgram.LAUNCHES
+    P = tacq.complement_precision(tk.KernelSpec("rbf", ds=2), tparams,
+                                  torch.tensor(x, dtype=torch.float32), torch.tensor(nvec))
+    assert tgram.LAUNCHES == before  # the CPU takes the plain Gram
+    P = P.numpy()
+    want = np.asarray(jacq.complement_precision(
+        KernelSpec("rbf", ds=2), params, jnp.asarray(x, jnp.float32), jnp.asarray(nvec)))
+    _close_to(P, want, 1e-4)
+    _close_to(P, np.linalg.inv(K + np.diag(nvec.astype(np.float64))), 1e-4)
+    # the dense inverse is WᵀW of the implicit seed
+    W, _ = tacq.implicit_complement_precision(
+        tk.KernelSpec("rbf", ds=2), tparams, torch.tensor(x, dtype=torch.float32),
+        torch.tensor(nvec))
+    _close_to(P, (W.mT @ W).numpy(), 1e-5)
+
+
+def _plan_inputs(rng):
+    cap = 16
+    sampled = np.array([3, 40, 77, 90], np.int64)
+    idx_pad = np.zeros(cap, np.int64)
+    idx_pad[: len(sampled)] = sampled
+    sets = rng.integers(0, 120, (12, 4))
+    sizes = np.full(12, 4, np.int64)
+    sizes[-1] = 0  # a padded slot
+    costs = rng.uniform(2, 9, 12).astype(np.float32)
+    return cap, sampled, idx_pad, sets, sizes, costs
+
+
+@pytest.mark.parametrize("strategy", ["entropy", "mi"])
+def test_plan_path_step_matches_unfused_pipeline_and_reference(rng, strategy):
+    """The twin of tests/test_acquisition.py's plan_path_step case: the
+    fused step reproduces conditioning → corrections → scoring → argmax,
+    and the reference's fused step."""
+    params, tparams, x, K, nv = setup_field(rng, n=120)
+    cap, sampled, idx_pad, sets, sizes, costs = _plan_inputs(rng)
+    pnv = np.full(cap, 1.0, np.float32)
+    pnv[: len(sampled)] = nv
+    spec = tk.KernelSpec("rbf", ds=2)
+    xt, nvt = torch.tensor(x, dtype=torch.float32), torch.full((120,), nv)
+    t = lambda a: torch.tensor(a)
+    W = WT = None
+    if strategy == "mi":
+        W, WT = tacq.implicit_complement_precision(spec, tparams, xt, nvt)
+    best, d, scores = tacq.plan_path_step(
+        spec, tparams, xt, nvt, t(idx_pad), 4, t(pnv), t(sets), t(sizes), t(costs),
+        W, WT, strategy=strategy)
+    # the unfused pipeline
+    res = tacq.greedy_select(spec, tparams, xt, nvt, t(idx_pad), rounds=0, num_pilot=cap,
+                             strategy="entropy", pilot_count=4, pilot_nv=t(pnv))
+    Pimp = None
+    if strategy == "mi":
+        F, ZT = tacq.implicit_corrections(W, WT, t(idx_pad), 4)
+        taken = torch.zeros(120, dtype=torch.bool)
+        taken[t(sampled)] = True
+        Pimp = (WT, F, ZT, taken)
+    scores_ref = tacq.score_candidate_sets(spec, tparams, xt, nvt, res.basis, t(sets),
+                                           t(sizes), P_implicit=Pimp,
+                                           strategy=strategy).numpy()
+    util = np.maximum(scores_ref, 0.0) / (costs + 1e-6)
+    util[sizes == 0] = -np.inf
+    assert int(best) == int(np.argmax(util))
+    np.testing.assert_allclose(scores.numpy(), scores_ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(d.numpy(), res.post_var.numpy(), rtol=1e-5, atol=1e-5)
+    # the reference's fused step on the same inputs
+    x32, nvj = jnp.asarray(x, jnp.float32), jnp.full((120,), nv, jnp.float32)
+    jW = jWT = None
+    if strategy == "mi":
+        jW, jWT = jacq.implicit_complement_precision(KernelSpec("rbf", ds=2), params, x32, nvj)
+    jbest, jd, jscores = jacq.plan_path_step(
+        KernelSpec("rbf", ds=2), params, x32, nvj, jnp.asarray(idx_pad, jnp.int32),
+        jnp.asarray(4, jnp.int32), jnp.asarray(pnv), jnp.asarray(sets, jnp.int32),
+        jnp.asarray(sizes, jnp.int32), jnp.asarray(costs), jW, jWT, strategy=strategy)
+    assert int(best) == int(jbest)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(jscores), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-4)
+
+
+def test_plan_path_step_mi_needs_the_seed(rng):
+    _, tparams, x, _, nv = setup_field(rng, n=40)
+    cap, _, idx_pad, sets, sizes, costs = _plan_inputs(rng)
+    t = lambda a: torch.tensor(a)
+    with pytest.raises(ValueError, match="implicit-precision seed"):
+        tacq.plan_path_step(tk.KernelSpec("rbf", ds=2), tparams,
+                            torch.tensor(x, dtype=torch.float32), torch.full((40,), nv),
+                            t(idx_pad), 4, torch.ones(cap), t(sets % 40), t(sizes),
+                            t(costs), strategy="mi")
+
+
+def _random_spd(rng, n, cond):
+    """tests/test_linalg.py:random_spd."""
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return (Q * np.geomspace(1.0, 1.0 / cond, n)) @ Q.T
+
+
+def test_spd_inverses_match_reference_and_f64(rng):
+    K = _random_spd(rng, 128, cond=50.0)
+    L = np.linalg.cholesky(K)
+    want = np.linalg.inv(K)
+    P1 = tla.spd_inverse_from_chol(torch.tensor(L, dtype=torch.float32)).numpy()
+    P2 = tla.spd_inverse(torch.tensor(K, dtype=torch.float32)).numpy()
+    for P in (P1, P2):
+        _close_to(P, want, 1e-3)
+    _close_to(P1, np.asarray(jla.spd_inverse_from_chol(jnp.asarray(L, jnp.float32))), 1e-4)
+    _close_to(P2, np.asarray(jla.spd_inverse(jnp.asarray(K, jnp.float32))), 1e-4)
+
+
+def test_padded_factors_equal_the_reference(rng):
+    L = np.tril(rng.standard_normal((5, 5))).astype(np.float32)
+    np.testing.assert_array_equal(tla.pad_factor(torch.tensor(L), 9).numpy(),
+                                  np.asarray(jla.pad_factor(jnp.asarray(L), 9)))
+    eye = tla.identity_padded_factor(7)
+    assert eye.dtype == torch.float32
+    np.testing.assert_array_equal(eye.numpy(), np.asarray(jla.identity_padded_factor(7)))
+    # a padded factor grows as the reference's does (chol_append_row)
+    K = _random_spd(rng, 6, cond=20.0)
+    L5 = np.linalg.cholesky(K[:5, :5]).astype(np.float32)
+    k_vec = np.zeros(9, np.float32)
+    k_vec[:5] = K[:5, 5]
+    got = tla.chol_append_row(tla.pad_factor(torch.tensor(L5), 9), 5, torch.tensor(k_vec),
+                              torch.tensor(np.float32(K[5, 5]))).numpy()
+    np.testing.assert_allclose(np.tril(got[:6, :6]), np.linalg.cholesky(K), rtol=3e-3,
+                               atol=3e-4)
+
+
+@pytest.mark.parametrize("shape,start,budget,goal,reachable", [
+    ((8, 12), 0, 12.0, -1, True), ((8, 12), 45, 9.0, -1, True),
+    ((10, 16), 17, 14.0, 36, True), ((6, 10), 59, 30.0, 40, True),
+    ((6, 10), 59, 30.0, 0, False),  # three row changes: past max_turns
+])
+def test_enumerate_paths_native_equals_the_reference(shape, start, budget, goal, reachable):
+    args = (*shape, 1.0, 1.0, start, budget, 64, 2, 0.5)
+    got = native.enumerate_paths_native(*args, goal=goal)
+    assert bool(got) == reachable
+    assert all(isinstance(c, float) for _, c in got)
+    ref = jnative.enumerate_paths_native(*args, goal=goal)
+    if ref is not None:  # the reference's C build is available
+        assert got == ref
+    env = SimpleNamespace(num_rows=shape[0], num_cols=shape[1],
+                          cfg=SimpleNamespace(col_spacing=1.0, row_spacing=1.0))
+    assert got == jplanning.enumerate_paths(
+        env, start, budget, goal=None if goal < 0 else goal, max_paths=64)
+
+
+def test_build_field_graph_equals_the_reference():
+    cfg = dict(num_rows=5, num_cols=7, col_spacing=0.75, row_spacing=3.0, seed=0)
+    g = planning.build_field_graph(FieldEnv(FieldConfig(**cfg), device="cpu"))
+    j = jplanning.build_field_graph(JFieldEnv(JFieldConfig(**cfg)))
+    assert list(g.nodes) == list(j.nodes)
+    edges = lambda h: sorted((min(a, b), max(a, b), w) for a, b, w in h.edges(data="weight"))
+    assert edges(g) == edges(j)
+    assert len(edges(g)) == 5 * 6 + 4 * 2
+
+
+def _public(path: Path) -> set:
+    """Module-level public names, and Class.method for public methods."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.ClassDef):
+            names.add(node.name)
+            names |= {f"{node.name}.{m.name}" for m in node.body
+                      if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.split(".")[-1].startswith("_")}
+
+
+def test_the_port_has_every_public_name_of_the_reference():
+    missing = {}
+    for ref in sorted((ROOT / "algp_tpu").rglob("*.py")):
+        rel = ref.relative_to(ROOT / "algp_tpu").as_posix()
+        port = ROOT / "algp_tpu_torch" / rel
+        have = _public(port) if port.exists() else set()
+        lack = _public(ref) - have - OMITTED.get(rel, set())
+        if lack:
+            missing[rel] = sorted(lack)
+    assert not missing, missing
+    # every omission is still a name of the reference (the list stays true)
+    for rel, names in OMITTED.items():
+        assert names <= _public(ROOT / "algp_tpu" / rel), rel
