@@ -70,7 +70,8 @@ script exits non-zero and never prints the final line:
                 the small-factor step picks the full-seed step's path
   9d. episode_long — `c5_long` (~160 steps on the 10k grid) through the
                 CLI once: the checks of phase 9, and at least one refit by
-                the SGPR bound
+                the SGPR bound; its final nlpd_test and cov90_test beside
+                the smallest held-out variance
   9e. lowrank_1m — phase 9b at N = 1 048 576, M = 512 (lowrank_bench.py
                 --n-grid 1024 --inducing 512): the seeds' solves are
                 explicit-inverse products; the 30 × 30 oracle check runs
@@ -186,15 +187,33 @@ script exits non-zero and never prints the final line:
  16e. tools_reference_api — `complement_precision` at 10 240 against its
                 plain version and WᵀW of the seed; `plan_path_step` against
                 `plan_episode_step` at the cut c5_10k's step 2
+ 17. quality  — the final posterior and calibration on the card against
+                the same run on the CPU, from the same draws made on the
+                host (the field and sensing noise from the phase's seed,
+                every fit's inits from the port's CPU generators; the deep
+                fits are chaotic in f32, so the CPU run replays the card's):
+ 17a. quality_deep_c2 — 14c's command (`c2_composite_restarts
+                --feature-warp tanh --deep-hidden 16 --deep-out 4`) at its
+                full length
+ 17b. quality_long_sgpr — c5_long at full width (10 000 candidates, M =
+                256), 264 pilots over an SGPR threshold of 256 (the pilot
+                fit is the SGPR bound; no threshold below M is accepted),
+                3 steps
+                For each device: nlpd_test, cov90_test, cov95_test, the
+                smallest held-out variance and the held-out cells below
+                1e-6; fails if a card coverage is more than one cell's
+                share from the CPU's or the card's nlpd_test more than
+                twice the CPU's
  11. kernels  — one JSON line for all kernels: launches on the paths, error
                 against the plain version, kernel / plain / library ms and
                 the card's bound
 Each path (main, episode, lowrank_main, episode_100k, episode_long,
 lowrank_1m, episode_1m, episode_4m, episode_4m_ens, episode_1m_long, the
 phases 12a-14d, the Cholesky seed path, the mesh paths 15b-15h in every
-rank, the tools paths 16a-16e, 16d in its own process) runs with the
-kernel counts set to 0 just before it and read just after; phase 15 runs
-after phase 10 (15f after 15e), then phase 16, before the kernels line.  The line before the kernels line gives the
+rank, the tools paths 16a-16e, 16d in its own process, the card runs of
+17a-17b) runs with the kernel counts set to 0 just before it and read
+just after; phase 15 runs after phase 10 (15f after 15e), then phases 16
+and 17, before the kernels line.  The line before the kernels line gives the
 script's total seconds.
 Last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -987,13 +1006,15 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
     plan_grams: list[int] = []  # Gram kernel launches of each plan call
     sparse_refits: list[int] = []
     captured: dict = {}
-    probes: dict = {"kcenter": [], "seed_chunks": [], "truth": [], "traits": []}
+    probes: dict = {"kcenter": [], "seed_chunks": [], "truth": [], "traits": [],
+                    "final": []}
     orig = episode.Agent._plan_and_metrics
     orig_traits, orig_fields = episode.Agent._trait_posteriors, multifit.multitrait_mean_fields
     orig_sparse = {k: getattr(sparse_gp, k)
                    for k in ("fit_step_sparse", "fit_step_sparse_warm")}
     orig_kc, orig_seed = acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed
     orig_truth = field_mod.FieldEnv._synthesize_lowrank
+    orig_calib = field_mod.FieldEnv.calibration
 
     def kcenter(x, m, *a, **k):
         probes["kcenter"].append([int(x.shape[0]), int(m)])
@@ -1013,6 +1034,11 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
         probes["truth"].append({"s": time.perf_counter() - t0,
                                 "gram_chunks": G.LAUNCHES - g0})
         return out
+
+    def calibration(self, mean, var, test_only=False):
+        if not test_only:  # the final posterior, scored once a run
+            probes["final"].append((self, var))
+        return orig_calib(self, mean, var, test_only)
 
     def fields(*a, **k):
         M = orig_fields(*a, **k)
@@ -1066,6 +1092,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
         setattr(sparse_gp, k, sparse_counted(k))
     acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = kcenter, seed
     field_mod.FieldEnv._synthesize_lowrank = truth
+    field_mod.FieldEnv.calibration = calibration
     episode.Agent._trait_posteriors, multifit.multitrait_mean_fields = traits, fields
     try:
         warm_s = None
@@ -1094,6 +1121,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
             setattr(sparse_gp, k, fn)
         acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = orig_kc, orig_seed
         field_mod.FieldEnv._synthesize_lowrank = orig_truth
+        field_mod.FieldEnv.calibration = orig_calib
         episode.Agent._trait_posteriors = orig_traits
         multifit.multitrait_mean_fields = orig_fields
     return dict(summary=summary, history=history, state=st, syncs=list(syncs),
@@ -1366,6 +1394,10 @@ def phase_episode_long(dev, card: str) -> dict:
         "warm refits 60x2 every 4 steps, SGPR over 256 k-center points past 512 "
         "samples", card)
     out.update(sgpr_checks(run, EPISODE_LONG_ARGS))
+    # the campaign's final calibration beside its smallest held-out variance
+    env, var = run["probes"]["final"][-1]
+    out.update(nlpd_test=out["calibration"]["nlpd_test"],
+               cov90_test=out["calibration"]["cov90_test"], **held_out_diagnostics(env, var))
     emit("episode_long", **out)
     return {"launches": run["launches"]}
 
@@ -2782,6 +2814,163 @@ def phase_tools(dev, card: str, main: dict) -> dict:
     return paths
 
 
+# phase 17: the final posterior and its calibration on the card against the
+# same run on the host's CPU.  deep_c2 is 14c's command at its full length;
+# long_sgpr is c5_long at full width past its SGPR threshold, cut in depth:
+# 264 pilots over a threshold of 256 (both packages refuse a threshold
+# below the 256 inducing points), so the pilot fit is the SGPR bound, then
+# QUALITY_LONG_STEPS steps on one MI seed, the capacity sized to them
+QUALITY_SEED = 0
+QUALITY_LONG_PILOT, QUALITY_LONG_THRESHOLD, QUALITY_LONG_STEPS = 264, 256, 3
+
+
+def quality_cases() -> list:
+    """(tag, config, steps) of phase 17's two paths."""
+    from algp_tpu_torch import config as tc
+
+    c2 = tc.PRESETS["c2_composite_restarts"]
+    deep = dataclasses.replace(
+        c2, field=dataclasses.replace(c2.field, feature_warp="tanh", seed=QUALITY_SEED),
+        episode=dataclasses.replace(c2.episode, seed=QUALITY_SEED),
+        deep=tc.MLPSpec(hidden=(16,), out=4))
+    lng = tc.PRESETS["c5_long"]
+    ep = lng.episode
+    long_sgpr = dataclasses.replace(
+        lng, fit=dataclasses.replace(lng.fit, sparse_threshold=QUALITY_LONG_THRESHOLD),
+        field=dataclasses.replace(lng.field, seed=QUALITY_SEED),
+        episode=dataclasses.replace(
+            ep, seed=QUALITY_SEED, num_pilot=QUALITY_LONG_PILOT,
+            max_samples=QUALITY_LONG_PILOT + (QUALITY_LONG_STEPS + 6) * ep.samples_per_step))
+    return [("deep_c2", deep, 1000), ("long_sgpr", long_sgpr, QUALITY_LONG_STEPS)]
+
+
+def held_out_diagnostics(env, var) -> dict:
+    """The held-out cells' smallest final variance and how many sit below
+    1e-6."""
+    v = np.asarray(var, np.float64)[env.test_mask]
+    return {"min_var_test": float(v.min()), "n_var_test_below_1e-6": int((v < 1e-6).sum())}
+
+
+def quality_run(cfg, base_env, device, steps: int, deep_fits: list) -> tuple:
+    """One episode of the port on `device` from host draws: the env a copy
+    of `base_env` (truth, features, split, sensing generator), every fit's
+    inits from the port's generators on the CPU, moved.  A deep refit is
+    run and appended to `deep_fits` while that list is shorter than the
+    refits so far, else replayed from it: the joint MLP fit is chaotic in
+    f32, so the second device takes the first one's fits.  Returns
+    (result, env, seconds, SGPR fits)."""
+    from algp_tpu_torch.convert import field_env_like
+    from algp_tpu_torch.episode import Agent
+    from algp_tpu_torch.models import gp, networks, sparse_gp
+
+    env = field_env_like(base_env, device)
+    saved = {(gp, "step_inits"): gp.step_inits,
+             (networks, "step_inits"): networks.step_inits,
+             (networks, "fit_step"): networks.fit_step,
+             (sparse_gp, "fit_step_sparse"): sparse_gp.fit_step_sparse,
+             (sparse_gp, "fit_step_sparse_warm"): sparse_gp.fit_step_sparse_warm}
+    calls = {"deep": 0, "sparse": 0}
+
+    def host_inits(spec, fit_cfg, seed, step, dev):
+        return saved[gp, "step_inits"](spec, fit_cfg, seed, step, "cpu").map(
+            lambda a: a.to(dev))
+
+    def host_deep_inits(kspec, mspec, fit_cfg, seed, step, dev):
+        mlp0, kinits = saved[networks, "step_inits"](kspec, mspec, fit_cfg, seed, step, "cpu")
+        return [(W.to(dev), b.to(dev)) for W, b in mlp0], kinits.map(lambda a: a.to(dev))
+
+    def deep_fit(kspec, mspec, fit_cfg, x, y, ns, seed, step, num_valid=None):
+        k = calls["deep"]
+        calls["deep"] += 1
+        if k < len(deep_fits):
+            r = deep_fits[k]
+            return dataclasses.replace(
+                r, params=r.params.map(lambda a: a.to(x.device)),
+                mlp=[(W.to(x.device), b.to(x.device)) for W, b in r.mlp])
+        r = saved[networks, "fit_step"](kspec, mspec, fit_cfg, x, y, ns, seed, step,
+                                        num_valid=num_valid)
+        deep_fits.append(r)
+        return r
+
+    def sparse(name):
+        def fit(*a, **k):
+            calls["sparse"] += 1
+            return saved[sparse_gp, name](*a, **k)
+        return fit
+
+    gp.step_inits, networks.step_inits = host_inits, host_deep_inits
+    networks.fit_step = deep_fit
+    sparse_gp.fit_step_sparse = sparse("fit_step_sparse")
+    sparse_gp.fit_step_sparse_warm = sparse("fit_step_sparse_warm")
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        res = Agent(env, cfg).run(max_steps=steps)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return res, env, seconds, calls["sparse"]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_quality(dev, card: str) -> dict:
+    """Phase 17: deep_c2 and long_sgpr once on the card and once on the
+    CPU from the same draws (`quality_run`; the card's deep fits replayed
+    on the CPU).  For each device the final nlpd_test / cov90_test /
+    cov95_test, the smallest held-out variance and the held-out cells
+    below 1e-6.  Fails if a card coverage is more than one cell's share
+    of its mask from the CPU's, or the card's nlpd_test is more than twice
+    the CPU's.  Returns each card run's launches."""
+    from algp_tpu_torch.field import FieldEnv
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for tag, cfg, steps in quality_cases():
+        base = FieldEnv(cfg.field, cfg.kernel, device="cpu")
+        fits: list = []
+        _zero_counts()
+        card_res, env, card_s, card_sparse = quality_run(cfg, base, dev, steps, fits)
+        launches["quality_" + tag] = _counts()
+        cpu_res, cpu_env, cpu_s, cpu_sparse = quality_run(cfg, base, "cpu", steps, fits)
+        card_cal, cpu_cal = card_res.calibration, cpu_res.calibration
+        if launches["quality_" + tag]["gram"] < 1:
+            raise AssertionError(f"quality {tag}: the card run launched no Gram kernel")
+        if tag == "long_sgpr" and not (card_sparse and cpu_sparse):
+            raise AssertionError(f"quality {tag}: no SGPR fit ({card_sparse}, {cpu_sparse})")
+        for k, mask in (("cov90", env.observed_mask), ("cov95", env.observed_mask),
+                        ("cov90_test", env.test_mask), ("cov95_test", env.test_mask)):
+            if abs(card_cal[k] - cpu_cal[k]) > (1 + 1e-9) / int(mask.sum()):
+                raise AssertionError(f"quality {tag}: card {k} {card_cal[k]} against "
+                                     f"the CPU's {cpu_cal[k]}, more than one cell apart")
+        if card_cal["nlpd_test"] - cpu_cal["nlpd_test"] > abs(cpu_cal["nlpd_test"]):
+            raise AssertionError(f"quality {tag}: card nlpd_test {card_cal['nlpd_test']}, "
+                                 f"more than twice the CPU's {cpu_cal['nlpd_test']}")
+        per = {}
+        for name, res, e, s in (("on_card", card_res, env, card_s),
+                                ("on_cpu", cpu_res, cpu_env, cpu_s)):
+            per[name] = dict({k: res.calibration[k] for k in
+                              ("nlpd_test", "cov90_test", "cov95_test", "nlpd", "cov90",
+                               "cov95")},
+                             rmse_test=res.rmse_test, seconds=s,
+                             **held_out_diagnostics(e, res.var))
+        emit("quality_" + tag, steps=int(card_res.state.step),
+             samples=len(card_res.state.sampled_idx),
+             same_sites=bool(np.array_equal(card_res.state.sampled_idx,
+                                            cpu_res.state.sampled_idx)),
+             max_abs_mean_diff=float(np.abs(card_res.mean - cpu_res.mean).max()),
+             max_abs_var_diff=float(np.abs(card_res.var - cpu_res.var).max()),
+             deep_fits_replayed=len(fits), sgpr_fits=card_sparse,
+             launches=launches["quality_" + tag], card=card, **per)
+    emit("quality", seconds=time.perf_counter() - t_phase, card=card)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -2851,6 +3040,7 @@ def main() -> None:
         pool.terminate()
         pool.join()
     tools = phase_tools(dev, smi, main_run)
+    quality = phase_quality(dev, smi)
     paths = {"main": main_run["launches"], "episode": episode_run["launches"],
              "lowrank_main": lowrank_run["launches"],
              "episode_100k": episode_100k["launches"],
@@ -2862,7 +3052,7 @@ def main() -> None:
              "episode_1m_long": episode_1m_long["launches"],
              **{tag: r["launches"] for tag, r in field_runs.items()},
              **{tag: r["launches"] for tag, r in greedy.items()},
-             "chol_seed": chol.pop("launches"), **mesh, **tools}
+             "chol_seed": chol.pop("launches"), **mesh, **tools, **quality}
 
     def entry(name, source, replaces, stats):
         by_path = {k: v[name] for k, v in paths.items()}

@@ -28,7 +28,7 @@ from algp_tpu_torch.models import coregional as ticm
 from algp_tpu_torch.models import gp as tgp
 from algp_tpu_torch.models import multifit
 from algp_tpu_torch.ops.kernels import KernelSpec
-from test_torch_episode import _configs, _reference_step_inits
+from test_torch_episode import _configs, _reference_step_inits, _same_posterior
 from test_torch_episode_fields import _same_sites
 
 SPEC = ("matern32", "rbf", 2, 0)
@@ -258,6 +258,7 @@ def test_icm_episode_matches_reference(monkeypatch):
     want = JAgent(jenv, jcfg).run()
     got = Agent(tenv, tcfg).run()
     _same_sites(want, got)
+    _same_posterior(want, got, tenv)
     assert np.isnan(got.state.y_traits).any()
     np.testing.assert_allclose(got.trait_rmse, want.trait_rmse, atol=5e-3)
     np.testing.assert_allclose(got.trait_rmse_test, want.trait_rmse_test, atol=5e-3)

@@ -30,6 +30,7 @@ from algp_tpu_torch.models import gp as tgp
 from algp_tpu_torch.ops import gram as tgram
 from algp_tpu_torch.ops.kernels import KernelSpec
 from algp_tpu_torch.utils import checkpoint as ckpt
+from posterior_parity import same_posterior as _same_posterior
 
 
 def _reference_step_inits(spec, cfg, seed, step, device):
@@ -88,6 +89,7 @@ def test_episode_matches_reference(monkeypatch, strategy, modality):
     assert got.rmse == pytest.approx(want.rmse, rel=1e-3)
     for k, v in want.calibration.items():
         assert got.calibration[k] == pytest.approx(v, rel=1e-2, abs=1e-3), k
+    _same_posterior(want, got, tenv, f"{strategy}/{modality}")
 
 
 def test_resume_from_checkpoint_continues_exactly(tmp_path):

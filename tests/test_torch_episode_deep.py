@@ -26,7 +26,7 @@ from algp_tpu_torch.field import FieldEnv
 from algp_tpu_torch.models import networks as tnets
 from algp_tpu_torch.ops.kernels import KernelSpec
 from algp_tpu_torch.utils import checkpoint as ckpt
-from test_torch_episode import _plan_records
+from test_torch_episode import _plan_records, _same_posterior
 from test_torch_episode_fields import _same_sites
 from test_torch_networks import reference_deep_inits
 
@@ -67,6 +67,7 @@ def test_deep_episode_matches_reference(monkeypatch):
     agent = Agent(tenv, tcfg)
     got = agent.run()
     _same_sites(want, got)
+    _same_posterior(want, got, tenv)
     assert agent.spec == KernelSpec("matern52", "rbf", ds=2, df=2)
     assert agent._Xdev.shape == (96, 4)
     np.testing.assert_allclose(

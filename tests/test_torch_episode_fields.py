@@ -26,7 +26,8 @@ from algp_tpu_torch.field import FieldEnv
 from algp_tpu_torch.models import gp as tgp
 from algp_tpu_torch.models import multifit
 from algp_tpu_torch.utils import checkpoint as ckpt
-from test_torch_episode import _configs, _plan_records, _reference_step_inits
+from test_torch_episode import (
+    _configs, _plan_records, _reference_step_inits, _same_posterior)
 
 
 def _reference_trait_inits(spec, cfg, seed, device):
@@ -84,6 +85,7 @@ def test_c2_composite_episode_matches_reference(monkeypatch):
     want = JAgent(jenv, jcfg).run(max_steps=6)
     got = Agent(tenv, tcfg).run(max_steps=6)
     _same_sites(want, got)
+    _same_posterior(want, got, tenv)
 
 
 def test_c10_table_episode_matches_reference(monkeypatch):
@@ -98,6 +100,7 @@ def test_c10_table_episode_matches_reference(monkeypatch):
     want = JAgent(jenv, jcfg).run(max_steps=6)
     got = Agent(tenv, tcfg).run(max_steps=6)
     _same_sites(want, got)
+    _same_posterior(want, got, tenv)
     scales = got.state.noise_scale
     assert (scales == 1.0).any() and (scales > 1.0).any()
 
@@ -127,6 +130,7 @@ def test_multi_trait_episode_matches_reference(monkeypatch):
     want = JAgent(jenv, jcfg).run()
     got = Agent(tenv, tcfg).run()
     _same_sites(want, got)
+    _same_posterior(want, got, tenv)
     st = got.state
     assert st.y_traits.shape == (len(st.sampled_idx), 3)
     np.testing.assert_array_equal(st.y_traits[:, 0], st.y)

@@ -46,7 +46,7 @@ from algp_tpu_torch.ops import kernels as tk
 from algp_tpu_torch.ops import linalg as tla
 
 import oracle
-from test_torch_episode import _plan_records, _reference_step_inits
+from test_torch_episode import _plan_records, _reference_step_inits, _same_posterior
 
 SPEC, TSPEC = KernelSpec("rbf", ds=2), tk.KernelSpec("rbf", ds=2)
 
@@ -398,5 +398,6 @@ def test_lowrank_episode_matches_reference(monkeypatch):
         assert b["rmse_test"] == pytest.approx(a["rmse_test"], rel=1e-3)
     np.testing.assert_array_equal(got.state.sampled_idx, want.state.sampled_idx)
     assert got.rmse == pytest.approx(want.rmse, rel=1e-3)
+    _same_posterior(want, got, tenv)
     # the design was computed once, over the whole grid
     assert agent._z_cache.shape == (40, 2)

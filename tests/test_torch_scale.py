@@ -53,7 +53,7 @@ from algp_tpu_torch.ops import kernels as tk
 from algp_tpu_torch.ops import linalg as tla
 
 import oracle
-from test_torch_episode import _plan_records, _reference_step_inits
+from test_torch_episode import _plan_records, _reference_step_inits, _same_posterior
 from test_torch_lowrank import _step_inputs, _t, setup_field
 
 SPEC, TSPEC = KernelSpec("rbf", ds=2), tk.KernelSpec("rbf", ds=2)
@@ -291,6 +291,7 @@ def _run_pair(monkeypatch, jcfg, tcfg, steps):
         assert (b["step"], b["n_sampled"]) == (a["step"], a["n_sampled"])
         assert b["rmse_test"] == pytest.approx(a["rmse_test"], rel=1e-3)
     np.testing.assert_array_equal(got.state.sampled_idx, want.state.sampled_idx)
+    _same_posterior(want, got, tenv)
     return jagent, agent
 
 

@@ -37,7 +37,7 @@ from algp_tpu_torch.models import sparse_gp as tsgp
 from algp_tpu_torch.ops import kernels as tk
 
 import oracle
-from test_torch_episode import _plan_records, _reference_step_inits
+from test_torch_episode import _plan_records, _reference_step_inits, _same_posterior
 from test_torch_lowrank import _np_params, _t, setup_field
 
 SPEC, TSPEC = KernelSpec("rbf", ds=2), tk.KernelSpec("rbf", ds=2)
@@ -262,6 +262,7 @@ def test_long_episode_with_sparse_refits_matches_reference(monkeypatch):
     np.testing.assert_array_equal(got.state.sampled_idx, want.state.sampled_idx)
     assert got.rmse == pytest.approx(want.rmse, rel=1e-3)
     assert got.rmse_test < ht[0]["rmse_test"]
+    _same_posterior(want, got, tenv)
 
 
 def test_sparse_threshold_below_the_inducing_count_is_refused():
