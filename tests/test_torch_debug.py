@@ -22,14 +22,6 @@ from algp_tpu_torch.ops import kernels as tk
 from algp_tpu_torch.utils import debug
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _message(mod, tree, name):
     with pytest.raises(FloatingPointError) as e:
         mod.assert_finite_tree(tree, name)

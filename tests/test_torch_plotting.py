@@ -19,14 +19,6 @@ EPISODE = ["--preset", "c5_episode", "--rows", "6", "--cols", "10", "--budget", 
            "--num-pilot", "6", "--iters", "10", "--device", "cpu"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def test_plotting_smoke(tmp_path):
     env = FieldEnv(FieldConfig(num_rows=5, num_cols=8, seed=0), device="cpu")
     mean = torch.zeros(env.n)

@@ -5,18 +5,9 @@ holds an `annotate` region."""
 import json
 
 import numpy as np
-import pytest
 import torch
 
 from algp_tpu_torch.utils import profiling
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_profiling_helpers():

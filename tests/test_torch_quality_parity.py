@@ -71,14 +71,6 @@ from test_torch_episode_deep import _reference_deep_step_inits
 from test_torch_episode_fields import _same_sites
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _deep_configs():
     """14c's command, `--preset c2_composite_restarts --feature-warp tanh
     --deep-hidden 16 --deep-out 4`, in both packages."""

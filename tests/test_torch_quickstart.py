@@ -9,27 +9,14 @@ import re
 import subprocess
 import sys
 
-import pytest
-import torch
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def test_quickstart_runs_all_sections():
-    # one intra-op thread: the suite's other workers hold the host's cores
-    env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", "quickstart_torch.py"),
          "--device", "cpu"],
-        capture_output=True, text=True, timeout=600, env=env,
+        capture_output=True, text=True, timeout=600,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = proc.stdout

@@ -57,14 +57,6 @@ OMITTED = {
 }
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _np_params(p):
     return {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}
 
