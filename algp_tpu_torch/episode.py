@@ -13,6 +13,10 @@ device work of an informative step is one `acquisition.plan_episode_step`
 come back in ONE device→host copy.  Uploads are non-blocking, refits and
 the per-refit MI seed are queued without waiting, so the host enumerates
 the next paths while the card works.  The Agent runs on its env's device.
+A posterior that comes to the host whole (the final one, and every step's
+of uniform / naive and of a step without device metrics) is scored where
+it lies by `FieldEnv.evaluate`, in f64, and its RMSEs, mean variance and
+calibration ride in the same copy as the field.
 
 Planners: the exact implicit precision (W = L⁻¹ of the N × N seed) up to
 16 384 candidates, the low-rank FITC precision above
@@ -78,7 +82,7 @@ from algp_tpu_torch import planning
 from algp_tpu_torch.config import (
     PATH_UTILITIES, ExperimentConfig, resolve_num_inducing, resolve_strategy,
 )
-from algp_tpu_torch.field import FieldEnv, Sample
+from algp_tpu_torch.field import EVALUATION, FieldEnv, Sample
 from algp_tpu_torch.models import gp as gp_mod
 from algp_tpu_torch.models import multifit, networks, sparse_gp
 from algp_tpu_torch.parallel import sharded_episode as sep
@@ -122,7 +126,10 @@ def _upload(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 class _PlanBundle:
     """One step's plan + the posterior metrics of the state it was
     planned from.  With device metrics `mean`/`var` are None and
-    `var_sites` holds the posterior variances at the path's sites."""
+    `var_sites` holds the posterior variances at the path's sites; else
+    `calibration` holds the rest of the field's evaluation, `eval_s` the
+    seconds from its posterior's enqueue to the numbers on the host and
+    `eval_device` the device they were reduced on."""
 
     nodes: list
     cost: float
@@ -133,6 +140,9 @@ class _PlanBundle:
     rmse_test: float
     mean_var: float
     var_sites: Optional[np.ndarray] = None
+    calibration: Optional[dict] = None
+    eval_s: Optional[float] = None
+    eval_device: Optional[str] = None
 
     @property
     def empty(self) -> bool:
@@ -248,7 +258,6 @@ class Agent:
         self._post_cache = None  # (params, n_samples, Posterior)
         self._base_noise_cache = None
         self._noise_vec_cache = None
-        self._truth_cache = None
         self._mesh_x_cache = None  # (the candidates, them mesh-padded)
         self._mesh_truth_cache = None
         self._step_post_var = None
@@ -399,9 +408,15 @@ class Agent:
         return nv
 
     def predict_field(self, st: EpisodeState):
-        """Posterior mean / variance over the grid, read in one copy.
-        Between refits the cached factor grows by the step's samples
-        (`gp.extend_and_predict`); a refit refactorizes once."""
+        """Posterior mean / variance over the grid, read in one copy."""
+        both = torch.cat(self._posterior_field(st)).cpu().numpy()
+        n = self.env.n
+        return both[:n], both[n:]
+
+    def _posterior_field(self, st: EpisodeState):
+        """Posterior mean / variance (n,) over the grid on the device,
+        queued.  Between refits the cached factor grows by the step's
+        samples (`gp.extend_and_predict`); a refit refactorizes once."""
         x, y, ns, m = self._padded_train(st)
         n_samp = len(st.sampled_idx)
         c = self._post_cache
@@ -426,9 +441,24 @@ class Agent:
                 min_noise=self.cfg.fit.min_noise, jitter=jitter, num_valid=m,
             )
         self._post_cache = (st.params, n_samp, post)
-        both = torch.cat([mean, var]).cpu().numpy()  # the one read
-        n = self.env.n
-        return both[:n], both[n:]
+        return mean, var
+
+    def _read_evaluated(self, mean, var, head=()):
+        """A posterior (n,) on the device and its `env.evaluate`, with any
+        (1,) `head` tensors of its dtype, in one device→host copy (the 9
+        f64 numbers ride first, as 18 f32 words): (head, mean, var,
+        numbers, the device they were reduced on), on the host."""
+        ev = self.env.evaluate(mean, var)
+        words = ev.view(mean.dtype)
+        h = torch.cat([words, *head, mean, var]).cpu().numpy()
+        e = words.shape[0]
+        k, n = e + len(head), self.env.n
+        return h[e:k], h[k:k + n], h[k + n:], h[:e].view(np.float64), ev.device.type
+
+    def _evaluated_field(self, st: EpisodeState):
+        """`predict_field` with the field's evaluation in its one read:
+        (mean, var, numbers, device)."""
+        return self._read_evaluated(*self._posterior_field(st))[1:]
 
     # ------------------------------------------------------- planning step
 
@@ -464,15 +494,10 @@ class Agent:
         return self.env.n >= 16384
 
     def _truth(self):
-        """(f_true, obs_mask, test_mask), f32 on the device, built once."""
-        if self._truth_cache is None:
-            env, dev = self.env, self.device
-            obs = _upload(env.observed_mask, torch.float32, dev)
-            test_idx = _upload(np.flatnonzero(env.test_mask), torch.int64, dev)
-            test = torch.zeros(env.n, dtype=torch.float32, device=dev)
-            test.index_fill_(0, test_idx, 1.0)
-            self._truth_cache = (env.f_dev, obs, test)
-        return self._truth_cache
+        """(f_true, obs_mask, test_mask), f32 on the device: the env's
+        (`FieldEnv.device_truth`), built once a field."""
+        t = self.env.device_truth()
+        return self.env.f_dev, t.observed, t.test
 
     def _mesh_x(self) -> torch.Tensor:
         """The candidates padded for the mesh (`sharded_episode.mesh_pad`),
@@ -492,19 +517,22 @@ class Agent:
                                            for a in self._truth())
         return self._mesh_truth_cache
 
-    def _host_bundle(self, nodes, cost, sites, mean, var) -> _PlanBundle:
+    def _host_bundle(self, nodes, cost, sites, t0, mean, var, numbers,
+                     device) -> _PlanBundle:
+        """A plan with its state's posterior on the host and the posterior's
+        evaluation (`_read_evaluated`), whose enqueue began at `t0`."""
+        e = dict(zip(EVALUATION, map(float, numbers)))
         return _PlanBundle(
-            nodes, cost, sites, mean, var,
-            rmse=self.env.rmse(mean),
-            rmse_test=self.env.rmse(mean, test_only=True),
-            mean_var=float(var.mean()),
+            nodes, cost, sites, mean, var, rmse=e.pop("rmse"),
+            rmse_test=e.pop("rmse_test"), mean_var=e.pop("mean_var"),
+            calibration=e, eval_s=time.perf_counter() - t0, eval_device=device,
         )
 
     def _plan_and_metrics(self, st: EpisodeState) -> _PlanBundle:
         """Plan the next path and produce the posterior metrics of the
         current state.  mi / entropy: one `plan_episode_step` and one
         device→host copy; uniform / naive plan on the host and read the
-        metrics from `predict_field`."""
+        metrics with the posterior (`_evaluated_field`)."""
         strat = self._strategy
         self._step_post_var = None  # for _sense('mixed')
         self._step_site_var = None
@@ -521,18 +549,19 @@ class Agent:
             # than the remaining budget affords
             afford = int(st.budget_left / max(self.env.cfg.col_spacing, 1e-9))
             take = list(unsampled[: min(self._k_max, afford)])
-            mean, var = self.predict_field(st)
+            t0 = time.perf_counter()
             return self._host_bundle(
-                take, float(len(take) * self.env.cfg.col_spacing), take,
-                mean, var,
+                take, float(len(take) * self.env.cfg.col_spacing), take, t0,
+                *self._evaluated_field(st),
             )
         if strat == "uniform":
             unsampled = np.setdiff1d(np.arange(self.env.n), st.sampled_idx)
             take = list(np.sort(self.rng.choice(
                 unsampled, min(self._k_max, len(unsampled)), replace=False
             )))
-            mean, var = self.predict_field(st)
-            return self._host_bundle(take, float(slice_budget), take, mean, var)
+            t0 = time.perf_counter()
+            return self._host_bundle(take, float(slice_budget), take, t0,
+                                     *self._evaluated_field(st))
 
         goal = self._current_goal(st)
         batch = planning.enumerate_batch(
@@ -553,10 +582,10 @@ class Agent:
             # terminal plan (slice spent / pose cornered): this fetch is
             # the episode's final one
             t0 = time.perf_counter()
-            mean, var = self.predict_field(st)
+            read = self._evaluated_field(st)
             self.logger.log(step=st.step, phase="final",
                             final_fetch_s=round(time.perf_counter() - t0, 4))
-            return self._host_bundle([], 0.0, [], mean, var)
+            return self._host_bundle([], 0.0, [], t0, *read)
         # pad the batch to the static shape: zero-size paths never win
         P = self._pad_paths
         sets = np.zeros((P, self._k_max), np.int64)
@@ -631,14 +660,14 @@ class Agent:
             best, mean, var, _ = acq.plan_episode_step(
                 *step_args, W, WT, strategy=strat, **common)
         # the step's one device→host copy
-        h = torch.cat([best.to(torch.float32).reshape(1), mean, var]).cpu().numpy()
+        (best,), *read = self._read_evaluated(
+            mean, var, head=(best.to(torch.float32).reshape(1),))
         prof["step_s"] = time.perf_counter() - t0
-        best = int(h[0])
-        mean, var = h[1: 1 + n], h[1 + n:]
-        self._step_post_var = var  # for _sense('mixed')
+        best = int(best)
+        self._step_post_var = read[1]  # for _sense('mixed')
         sites = list(batch.sets[best][: batch.sizes[best]])
         return self._host_bundle(
-            batch.node_seqs[best], float(batch.costs[best]), sites, mean, var,
+            batch.node_seqs[best], float(batch.costs[best]), sites, t0, *read,
         )
 
     def _current_goal(self, st: EpisodeState) -> Optional[int]:
@@ -888,17 +917,17 @@ class Agent:
             st.params = st.pending_params
             st.pending_params = None
             bundle.mean = bundle.var = None  # force a fresh final fetch
-        mean, var = bundle.mean, bundle.var
-        if mean is None:
+        if bundle.mean is None:
             t0 = time.perf_counter()
-            mean, var = self.predict_field(st)
+            read = self._evaluated_field(st)
             self.logger.log(step=st.step, phase="final",
                             final_fetch_s=round(time.perf_counter() - t0, 4))
-        calib = self.env.calibration(mean, var)
-        calib.update({k + "_test": v for k, v in
-                      self.env.calibration(mean, var, test_only=True).items()})
+            bundle = self._host_bundle([], 0.0, [], t0, *read)
+        # the final posterior's evaluation came with its one read
+        calib = bundle.calibration
         self.logger.log(step=st.step, phase="calibration",
-                        **{k: round(v, 6) for k, v in calib.items()})
+                        **{k: round(v, 6) for k, v in calib.items()},
+                        eval_s=round(bundle.eval_s, 4), eval_device=bundle.eval_device)
         trait_rmse = trait_rmse_test = None
         if self._multi_trait:
             trait_rmse, trait_rmse_test = self._trait_posteriors(st)
@@ -906,9 +935,8 @@ class Agent:
                             trait_rmse=[round(v, 6) for v in trait_rmse],
                             trait_rmse_test=[round(v, 6) for v in trait_rmse_test])
         return EpisodeResult(
-            state=st, history=self.logger.history, mean=mean, var=var,
-            rmse=self.env.rmse(mean),
-            rmse_test=self.env.rmse(mean, test_only=True),
+            state=st, history=self.logger.history, mean=bundle.mean,
+            var=bundle.var, rmse=bundle.rmse, rmse_test=bundle.rmse_test,
             calibration=calib,
             trait_rmse=trait_rmse, trait_rmse_test=trait_rmse_test,
         )

@@ -25,6 +25,10 @@ noise equal the reference's; the feature warp's projection comes from
 `default_rng(seed + 7919)` and is computed on the host in numpy, as there.  A
 table (`_load_table`) is read with the standard library's `csv` module.
 
+The exception is `evaluate`, which scores a posterior field where it lies:
+the truth and its masks go up to the device once per env
+(`device_truth`), and the numbers are reduced there in f64.
+
 The env runs on the card unless the caller passes `device="cpu"`.  A
 given `truth` (n,) or (n, T) replaces the synthetic draw, so a test can
 run both packages on the reference's field (`convert.field_env_like`).
@@ -48,6 +52,26 @@ from algp_tpu_torch.ops.kernels import KernelSpec, gram, gram_diag
 
 MODALITIES = ("precise", "cheap")
 FEATURE_WARPS = ("none", "tanh", "sin")
+
+#: the numbers of `FieldEnv.evaluate`, in its order: `rmse` over the
+#: ground-truth cells and the held-out split, the mean posterior variance
+#: over the grid, then `calibration`'s and its held-out twins
+EVALUATION = ("rmse", "rmse_test", "mean_var", "nlpd", "cov90", "cov95",
+              "nlpd_test", "cov90_test", "cov95_test")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceTruth:
+    """The truth and its masks on the env's device: `f` the f64 truth of
+    trait 0 (exact, as `FieldEnv.f`), `observed` / `test` the f32 0/1
+    weights of `observed_mask` / `test_mask`, and their counts on the host."""
+
+    f: torch.Tensor
+    observed: torch.Tensor
+    test: torch.Tensor
+    n_observed: int
+    n_test: int
+
 
 #: the FITC truth streams its grid in _SYNTH_CHUNK points once the (M, n)
 #: K_zx buffer would pass _SYNTH_CHUNK_BYTES, as the reference does (a
@@ -76,7 +100,8 @@ class FieldEnv:
     `traits` (n, T) is a f64 host array, `f` its column 0 (the planning
     trait) and `f_dev` that column's f32 device copy.  `observed_traits`
     (n, T) marks the cells with ground truth (all, but for a table's
-    gaps); `observed_mask` is its column 0.
+    gaps); `observed_mask` is its column 0.  `device_truth()` holds the
+    device copies that `evaluate` scores against.
     """
 
     def __init__(self, cfg: FieldConfig, spec: Optional[KernelSpec] = None,
@@ -143,6 +168,7 @@ class FieldEnv:
         test = self._rng.permutation(observed)[: max(1, len(observed) // 5)]
         self.test_mask = np.zeros(self.n, bool)
         self.test_mask[test] = True
+        self._device_truth = None
 
     # ------------------------------------------------------------------ init
 
@@ -423,6 +449,51 @@ class FieldEnv:
             "cov90": float(np.mean(z <= 1.6448536269514722)),
             "cov95": float(np.mean(z <= 1.959963984540054)),
         }
+
+    def device_truth(self) -> DeviceTruth:
+        """The truth and its masks on the env's device, built on first use
+        without waiting for the device (the masks go up as bytes and are
+        widened there)."""
+        if self._device_truth is None:
+            def up(a, dtype):
+                # a pageable upload is staged before the call returns
+                return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+                    self.device, non_blocking=True)
+
+            def weights(mask):
+                return up(mask, bool).to(torch.float32)
+
+            self._device_truth = DeviceTruth(
+                f=up(self.f, np.float64),
+                observed=weights(self.observed_mask), test=weights(self.test_mask),
+                n_observed=int(self.observed_mask.sum()),
+                n_test=int(self.test_mask.sum()),
+            )
+        return self._device_truth
+
+    def evaluate(self, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+        """`rmse` and `calibration` of a posterior (μ, σ²) field, both
+        masks, and its mean variance, reduced where the (n,) tensors lie
+        (the env's device) in f64 without a host read: a (9,) f64 tensor
+        in `EVALUATION`'s order.  The same formulas as the host methods,
+        the masks applied as 0/1 weights over their host-known counts."""
+        t = self.device_truth()
+        v = var.double()
+        vf = torch.clamp_min(v, 1e-12)
+        d = mean.double() - t.f
+        d2 = d * d
+        z = torch.abs(d) / torch.sqrt(vf)
+        terms = torch.stack([
+            d2, torch.log(2.0 * np.pi * vf) + d2 / vf,
+            # central-interval half-widths: Φ⁻¹(0.95), Φ⁻¹(0.975)
+            (z <= 1.6448536269514722).double(), (z <= 1.959963984540054).double(),
+        ])
+        obs = torch.sum(terms * t.observed, dim=1) / t.n_observed
+        test = torch.sum(terms * t.test, dim=1) / t.n_test
+        return torch.cat([
+            torch.sqrt(obs[:1]), torch.sqrt(test[:1]), torch.mean(v).reshape(1),
+            0.5 * obs[1:2], obs[2:], 0.5 * test[1:2], test[2:],
+        ])
 
     def rmse_traits(self, means, test_only: bool = False) -> list[float]:
         """Per-trait RMSE of posterior mean fields `means` (n, T), each

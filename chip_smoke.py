@@ -1014,7 +1014,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
                    for k in ("fit_step_sparse", "fit_step_sparse_warm")}
     orig_kc, orig_seed = acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed
     orig_truth = field_mod.FieldEnv._synthesize_lowrank
-    orig_calib = field_mod.FieldEnv.calibration
+    orig_eval = field_mod.FieldEnv.evaluate
 
     def kcenter(x, m, *a, **k):
         probes["kcenter"].append([int(x.shape[0]), int(m)])
@@ -1035,10 +1035,9 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
                                 "gram_chunks": G.LAUNCHES - g0})
         return out
 
-    def calibration(self, mean, var, test_only=False):
-        if not test_only:  # the final posterior, scored once a run
-            probes["final"].append((self, var))
-        return orig_calib(self, mean, var, test_only)
+    def evaluate(self, mean, var):
+        probes["final"][:] = [(self, var)]  # the last one scored is the final posterior
+        return orig_eval(self, mean, var)
 
     def fields(*a, **k):
         M = orig_fields(*a, **k)
@@ -1092,7 +1091,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
         setattr(sparse_gp, k, sparse_counted(k))
     acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = kcenter, seed
     field_mod.FieldEnv._synthesize_lowrank = truth
-    field_mod.FieldEnv.calibration = calibration
+    field_mod.FieldEnv.evaluate = evaluate
     episode.Agent._trait_posteriors, multifit.multitrait_mean_fields = traits, fields
     try:
         warm_s = None
@@ -1121,7 +1120,7 @@ def run_episodes(dev, args: list, tag: str, warm: bool, capture_step=None) -> di
             setattr(sparse_gp, k, fn)
         acq_lr.kcenter_indices, acq_lr.lowrank_factors_seed = orig_kc, orig_seed
         field_mod.FieldEnv._synthesize_lowrank = orig_truth
-        field_mod.FieldEnv.calibration = orig_calib
+        field_mod.FieldEnv.evaluate = orig_eval
         episode.Agent._trait_posteriors = orig_traits
         multifit.multitrait_mean_fields = orig_fields
     return dict(summary=summary, history=history, state=st, syncs=list(syncs),
@@ -1149,7 +1148,8 @@ def check_episode(run: dict, args: list, workload: str, card: str) -> dict:
                summary["final_rmse"], summary["final_rmse_test"],
                summary["mean_var"]] + [h[k] for h in plans
                                        for k in ("rmse", "rmse_test", "mean_var")]
-    metrics += [v for k, v in calib.items() if k not in ("t_wall", "step", "phase")]
+    metrics += [v for k, v in calib.items()
+                if k not in ("t_wall", "step", "phase", "eval_device")]
     if not np.isfinite(metrics).all():
         raise AssertionError(f"non-finite episode metric: {metrics}")
     if not summary["final_rmse_test"] < pilot["rmse_test"]:
@@ -1397,7 +1397,8 @@ def phase_episode_long(dev, card: str) -> dict:
     # the campaign's final calibration beside its smallest held-out variance
     env, var = run["probes"]["final"][-1]
     out.update(nlpd_test=out["calibration"]["nlpd_test"],
-               cov90_test=out["calibration"]["cov90_test"], **held_out_diagnostics(env, var))
+               cov90_test=out["calibration"]["cov90_test"],
+               **held_out_diagnostics(env, var.cpu().numpy()))
     emit("episode_long", **out)
     return {"launches": run["launches"]}
 
