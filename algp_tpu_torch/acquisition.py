@@ -48,6 +48,7 @@ from algp_tpu_torch.ops import linalg as la
 from algp_tpu_torch.ops.gram import gram_kernel, gram_kernel_with_noise
 from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
 from algp_tpu_torch.ops.updates import wtw_column
+from algp_tpu_torch.utils.profiling import annotate
 
 
 #: candidate count from which the (cap | M, N) solves of the conditioning
@@ -729,9 +730,11 @@ def implicit_precision_seed(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`implicit_complement_precision` with the candidate noise
     nv = nv_mult · max(exp(2·log_noise), min_noise²) derived on the
-    device: the episode's per-refit seed, no host read."""
-    return _seed(seed_matrix(spec, params, x, min_noise=min_noise,
-                             nv_mult=nv_mult))
+    device: the episode's per-refit seed, no host read.  Marked as the
+    profiler region `exact.seed`."""
+    with annotate("exact.seed"):
+        return _seed(seed_matrix(spec, params, x, min_noise=min_noise,
+                                 nv_mult=nv_mult))
 
 
 def seed_matrix(

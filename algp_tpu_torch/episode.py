@@ -30,7 +30,12 @@ points, K seeds per refit, and averages their MI scores in the step.
 Refits: the exact MLL fit, or, once the sampled set exceeds
 `FitConfig.sparse_threshold`, the collapsed SGPR bound over
 `sparse_inducing` k-center points of the sampled set
-(`models.sparse_gp`).
+(`models.sparse_gp`).  The record of a step that fitted (the `pilot` or
+`resume` record, or a `plan` record) names the fit's objective,
+`fit_kind` "exact", "sgpr" or "deep", and an SGPR refit's record adds
+`sgpr_design_s`, the host seconds of its k-center design (an enqueue,
+as `fit_s` is).  The exact planner's step is the profiler region
+`exact.plan_step`, its seed `exact.seed`.
 
 Multi-trait fields (`env.num_traits` > 1): the episode plans on trait 0
 while every visit measures all traits (`env.collect_traits`, kept row by
@@ -89,6 +94,7 @@ from algp_tpu_torch.parallel import sharded_episode as sep
 from algp_tpu_torch.parallel.sharded import all_gather
 from algp_tpu_torch.utils.checkpoint import EpisodeState
 from algp_tpu_torch.utils.metrics import MetricsLogger
+from algp_tpu_torch.utils.profiling import annotate
 
 STRATEGIES = ("mi", "entropy", "uniform", "naive")
 
@@ -263,6 +269,7 @@ class Agent:
         self._step_post_var = None
         self._step_site_var = None
         self._plan_profile: dict = {}
+        self._fit_log: dict = {}  # the record fields of the latest fit
 
     def _grow_capacity(self, needed: int) -> None:
         """Grow the static sample capacity, with a warning: every padded
@@ -339,19 +346,24 @@ class Agent:
         refit_restarts) start restart 0 from the incumbent.  `lagged`
         stores the result as `st.pending_params`, adopted a plan later.  A
         deep refit is a full joint fit from a fresh MLP; it re-embeds the
-        candidates before returning."""
+        candidates before returning.  The fit's record fields (`fit_kind`,
+        and an SGPR refit's `sgpr_design_s`) wait in `_fit_log` for the
+        step's record."""
         x, y, ns, m = self._padded_train(st, raw=True)
         fit = self.cfg.fit
         seed = self.cfg.episode.seed
         deep = self.cfg.deep
         warm = (st.params is not None and (fit.refit_iters or fit.refit_restarts)
                 and deep is None)
+        kind = "exact"
         if deep is not None:
+            kind = "deep"
             res = networks.fit_step(self.cfg.kernel, deep, fit, x, y, ns, seed,
                                     st.step, num_valid=m)
             self._set_mlp(res.mlp)
             st.mlp = res.mlp
         elif fit.sparse_threshold and len(st.sampled_idx) > fit.sparse_threshold:
+            kind = "sgpr"
             # long campaign: the collapsed SGPR bound, O(n·M²) per step
             if warm:
                 res = sparse_gp.fit_step_sparse_warm(
@@ -371,11 +383,20 @@ class Agent:
         else:
             res = gp_mod.fit_step(self.spec, fit, x, y, ns, seed, st.step,
                                   num_valid=m)
+        self._fit_log = {"fit_kind": kind}
+        if kind == "sgpr":
+            self._fit_log["sgpr_design_s"] = round(res.design_s, 4)
         if lagged:
             st.pending_params = res.params
         else:
             st.params = res.params
         return res
+
+    def _fit_fields(self) -> dict:
+        """The record fields of the fit since the last record (none if no
+        fit ran), handed over once."""
+        out, self._fit_log = self._fit_log, {}
+        return out
 
     def _set_mlp(self, mlp) -> None:
         """Adopt embedding weights: re-embed the candidate matrix (one
@@ -628,9 +649,10 @@ class Agent:
                     *step_args, fac, f_true, obs_m, test_m, **common)
             else:
                 f_true, obs_m, test_m = self._truth()
-                out = acq.plan_episode_step_metrics(
-                    *step_args, f_true, obs_m, test_m, W, WT, strategy=strat,
-                    **common)
+                with annotate("exact.plan_step"):
+                    out = acq.plan_episode_step_metrics(
+                        *step_args, f_true, obs_m, test_m, W, WT, strategy=strat,
+                        **common)
             best, rmse, rmse_test, mean_var, var_sites = out
             # the step's one device→host copy, a few dozen bytes
             h = torch.cat([best.to(torch.float32).reshape(1), rmse.reshape(1),
@@ -657,8 +679,9 @@ class Agent:
             best, mean, var, _ = acq_lr.plan_episode_step_lowrank_factors(
                 *step_args, fac, **common)
         else:
-            best, mean, var, _ = acq.plan_episode_step(
-                *step_args, W, WT, strategy=strat, **common)
+            with annotate("exact.plan_step"):
+                best, mean, var, _ = acq.plan_episode_step(
+                    *step_args, W, WT, strategy=strat, **common)
         # the step's one device→host copy
         (best,), *read = self._read_evaluated(
             mean, var, head=(best.to(torch.float32).reshape(1),))
@@ -822,6 +845,7 @@ class Agent:
                     self.env._rng.bit_generator.state = st.rng_state["env"]
         else:
             st = self.pilot_survey()
+        self._fit_log = {}
         t0 = time.perf_counter()
         if st.params is None or (self.cfg.deep is not None and st.mlp is None):
             self.fit_model(st)
@@ -829,6 +853,7 @@ class Agent:
             # resume: the checkpointed embedding goes with its params
             self._set_mlp(st.mlp)
         t_fit0 = time.perf_counter() - t0
+        pilot_fit = self._fit_fields()
         # the bundle carries the next step's plan with the current state's
         # metrics; plan wall time is attributed to the step it plans for
         t0 = time.perf_counter()
@@ -839,7 +864,7 @@ class Agent:
             step=st.step, phase="pilot" if resume_from is None else "resume",
             n_sampled=len(st.sampled_idx), rmse=bundle.rmse,
             rmse_test=bundle.rmse_test, mean_var=bundle.mean_var,
-            budget_left=st.budget_left, fit_s=round(t_fit0, 4),
+            budget_left=st.budget_left, fit_s=round(t_fit0, 4), **pilot_fit,
         )
 
         capped = False
@@ -906,7 +931,7 @@ class Agent:
                 rmse=bundle.rmse, rmse_test=bundle.rmse_test,
                 mean_var=bundle.mean_var, budget_left=round(st.budget_left, 3),
                 plan_s=round(t_plan, 4), fit_s=round(t_fit, 4),
-                sense_s=round(t_sense, 4),
+                sense_s=round(t_sense, 4), **self._fit_fields(),
                 **{k: round(v, 4) for k, v in prof.items()},
             )
 

@@ -129,6 +129,9 @@ class FitResult:
     all_nlls: torch.Tensor  # (restarts,) final NLL per restart
     nll_trace: torch.Tensor  # (restarts, iters) NLL per step
     best_restart: torch.Tensor  # index of the winning restart (device)
+    # an SGPR refit's host seconds for its k-center design (an enqueue:
+    # nothing waits for the device); None for every other fit
+    design_s: Optional[float] = None
 
 
 def _bias_correction(decay: float, count: int) -> float:

@@ -19,11 +19,17 @@ The episode's refits (`fit_step_sparse`, `fit_step_sparse_warm`) take a
 k-center design over the valid rows of the padded buffer, computed on the
 device.  `predict_sparse` builds K_z* with the Gram kernel of `ops.gram`
 (the plain version for CPU tensors).
+
+Tracing: each refit marks its design and its fit as the profiler regions
+`sgpr.design` and `sgpr.fit` (`utils.profiling.annotate`), once a refit;
+`FITS` counts the SGPR fits started, as `ops.gram.LAUNCHES` counts the
+Gram kernel's launches.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,8 +45,12 @@ from algp_tpu_torch.models.gp import FitResult, effective_noise_var
 from algp_tpu_torch.ops import linalg as la
 from algp_tpu_torch.ops.gram import gram_kernel
 from algp_tpu_torch.ops.kernels import KernelParams, KernelSpec, gram, gram_diag
+from algp_tpu_torch.utils.profiling import annotate
 
 _LOG2PI = 1.8378770664093453
+
+#: SGPR fits started so far (a run can show how many of its fits were sparse)
+FITS = 0
 
 
 def _bound_terms(spec, params, x, y, z, noise_scale, min_noise, num_valid):
@@ -101,6 +111,8 @@ def neg_elbo(
 
 def _fit_sparse_batched(spec, cfg, x, y, z, noise_scale, inits, num_valid=None):
     """All restarts of `inits` at once on −ELBO, then the winner."""
+    global FITS
+    FITS += 1
 
     def loss(p: KernelParams) -> torch.Tensor:
         if not cfg.learn_noise:
@@ -142,6 +154,21 @@ def _valid_design(x, num_valid, num_inducing, caller):
     return x.index_select(0, kcenter_indices(x, m, num_valid))
 
 
+def _design_and_fit(spec, cfg, x, y, noise_scale, num_valid, num_inducing,
+                    caller, inits):
+    """A refit's design and fit, each in its profiler region; the result
+    carries the design's host seconds (`FitResult.design_s`, an enqueue
+    like the episode's `fit_s`)."""
+    with annotate("sgpr.design"):
+        t0 = time.perf_counter()
+        z = _valid_design(x, num_valid, num_inducing, caller)
+        design_s = time.perf_counter() - t0
+    with annotate("sgpr.fit"):
+        res = _fit_sparse_batched(spec, cfg, x, y, z, noise_scale, inits, num_valid)
+    res.design_s = design_s
+    return res
+
+
 def fit_step_sparse(
     spec: KernelSpec,
     cfg: FitConfig,
@@ -157,9 +184,9 @@ def fit_step_sparse(
     """The episode's sparse refit at `step`: inits from `gp.step_inits`, a
     k-center design of `num_inducing` points over the valid rows, then
     `fit_sparse`.  Requires num_valid ≥ num_inducing (`check_kcenter_m`)."""
-    z = _valid_design(x, num_valid, num_inducing, "fit_step_sparse")
     inits = gp_mod.step_inits(spec, cfg, seed, step, x.device)
-    return _fit_sparse_batched(spec, cfg, x, y, z, noise_scale, inits, num_valid)
+    return _design_and_fit(spec, cfg, x, y, noise_scale, num_valid, num_inducing,
+                           "fit_step_sparse", inits)
 
 
 def fit_step_sparse_warm(
@@ -178,10 +205,10 @@ def fit_step_sparse_warm(
     """`fit_step_sparse` with the incumbent as restart 0 and `gp.refit_cfg`'s
     iters / restarts: best-ever tracking evaluates the incumbent first, so
     the refit's −ELBO never ends above the incumbent's on the same design."""
-    z = _valid_design(x, num_valid, num_inducing, "fit_step_sparse_warm")
     rcfg = gp_mod.refit_cfg(cfg)
     inits = gp_mod.warm_inits(spec, rcfg, seed, step, incumbent, x.device)
-    return _fit_sparse_batched(spec, rcfg, x, y, z, noise_scale, inits, num_valid)
+    return _design_and_fit(spec, rcfg, x, y, noise_scale, num_valid, num_inducing,
+                           "fit_step_sparse_warm", inits)
 
 
 @dataclasses.dataclass

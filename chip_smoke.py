@@ -71,7 +71,8 @@ script exits non-zero and never prints the final line:
   9d. episode_long — `c5_long` (~160 steps on the 10k grid) through the
                 CLI once: the checks of phase 9, and at least one refit by
                 the SGPR bound; its final nlpd_test and cov90_test beside
-                the smallest held-out variance
+                the smallest held-out variance (measured and checked against
+                a plain reference by the benchmark cell `c5_long.campaign`)
   9e. lowrank_1m — phase 9b at N = 1 048 576, M = 512 (lowrank_bench.py
                 --n-grid 1024 --inducing 512): the seeds' solves are
                 explicit-inverse products; the 30 × 30 oracle check runs
