@@ -9,11 +9,26 @@ are supported throughout (the fit's restarts).
 Not ported: the panel-blocked solve (`blocked_solve_triangular`, the
 reference's workaround for the TPU's memory): the card's memory holds the
 episode's whole (cap, N) right-hand side; see ROADMAP.md.
+
+Tracing: a triangular inverse past `TRI_INV_SOLVE_MAX` (the exact MI
+seed's) is the profiler region `linalg.tri_inv`, and `TRI_INV_BLOCKED`
+counts them, as `sparse_gp.FITS` counts the SGPR fits.
 """
 
 from __future__ import annotations
 
 import torch
+
+from algp_tpu_torch.utils.profiling import annotate
+
+#: Largest n that `tri_inv` inverts by one solve against the identity;
+#: past it, the blocked inversion with leaves of `TRI_INV_LEAF` (512 took
+#: the least time of 256-512 on an H100 at n = 10 000 and 10 240, PERF.md).
+TRI_INV_SOLVE_MAX = 1024
+TRI_INV_LEAF = 512
+
+#: Inversions that took the blocked path so far
+TRI_INV_BLOCKED = 0
 
 
 def _eye_like(K: torch.Tensor) -> torch.Tensor:
@@ -109,12 +124,102 @@ def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
 
 def tri_inv(L: torch.Tensor) -> torch.Tensor:
     """Inverse of a lower-triangular matrix, W = L⁻¹ (exactly zero above
-    the diagonal), row-major.  The reference builds it by recursive
-    bisection over matmuls; here it is one triangular solve against the
+    the diagonal), row-major; only L's lower triangle is read.
+
+    Up to `TRI_INV_SOLVE_MAX` it is one triangular solve against the
     identity.  The solver returns column-major results, so it solves for
     Wᵀ = (Lᵀ)⁻¹ and W is that result's transpose view, row-major with no
-    copy (the precision-column kernel reads W by rows)."""
-    return torch.linalg.solve_triangular(L.mT, _eye_like(L), upper=True).mT
+    copy (the precision-column kernel reads W by rows).  Past it, that
+    solve would spend n³ flops on the identity's zero triangle: the
+    blocked inversion (`_tri_inv_blocked`) needs n³/3."""
+    n = L.shape[-1]
+    if n <= TRI_INV_SOLVE_MAX:
+        return torch.linalg.solve_triangular(L.mT, _eye_like(L), upper=True).mT
+    global TRI_INV_BLOCKED
+    with annotate("linalg.tri_inv"):
+        W = torch.empty(L.shape, dtype=L.dtype, device=L.device)
+        for Lb, Wb in zip(L.reshape(-1, n, n), W.view(-1, n, n)):
+            _tri_inv_blocked(Lb, TRI_INV_LEAF, out=Wb)
+            TRI_INV_BLOCKED += 1
+    return W
+
+
+def _tri_inv_blocked(L: torch.Tensor, leaf: int, out: torch.Tensor = None) -> torch.Tensor:
+    """W = L⁻¹ for one (n, n) lower-triangular L by bisection, the
+    reference's recursion run bottom up: for L = [[A, 0], [B, C]],
+    W = [[A⁻¹, 0], [−C⁻¹·(B·A⁻¹), C⁻¹]].
+
+    The diagonal `leaf` blocks are inverted first, by one batched solve
+    against the identity (a ragged last leaf identity-padded, which is
+    exact; never the reference's Neumann doubling, which overflows in f32
+    on c5_long's factors, tests/test_torch_quality_parity.py).  Then each level merges neighbouring
+    blocks of size s = leaf·2ˡ into blocks of 2s (`_merge`): the merges
+    of a level whose two halves are whole are one batch of strided views
+    into L and W, and a ragged last merge is its own.  Both products of a
+    merge run over the tiles of their triangular operand (`_tiles`), so
+    no product reads a block known to be zero: n³/3 + O(n²·leaf) flops in
+    all.  Every product writes through a view of W (zeroed first) or of
+    one scratch of at most n²/4 entries, and nothing is read on the host.
+    """
+    n = L.shape[-1]
+    W = L.new_zeros((n, n)) if out is None else out.zero_()
+    full, rag = divmod(n, leaf)
+    # the leaves: D holds L's diagonal blocks, the ragged one in an identity
+    D = torch.eye(leaf, dtype=L.dtype, device=L.device).repeat(full + (rag > 0), 1, 1)
+    if full:
+        D[:full] = _blocks(L, 0, 0, leaf, full, leaf, leaf)
+    if rag:
+        D[full, :rag, :rag] = L[full * leaf:, full * leaf:]
+    Dinv = torch.linalg.solve_triangular(D.mT, _eye_like(D), upper=True).mT
+    if full:
+        _blocks(W, 0, 0, leaf, full, leaf, leaf).copy_(Dinv[:full])
+    if rag:
+        W[full * leaf:, full * leaf:] = Dinv[full, :rag, :rag]
+    scratch = L.new_empty((n * n // 4,))
+    s = leaf
+    while s < n:
+        pairs, rest = divmod(n, 2 * s)
+        if pairs:
+            _merge(L, W, scratch, 0, pairs, s, s, leaf)
+        if rest > s:
+            _merge(L, W, scratch, n - rest, 1, s, rest - s, leaf)
+        s *= 2
+    return W
+
+
+def _blocks(M, r0, c0, step, cnt, rows, cols):
+    """The `cnt` (rows, cols) blocks of the 2-D `M` at (r0 + i·step,
+    c0 + i·step), as one strided (cnt, rows, cols) view."""
+    s0, s1 = M.stride()
+    return M.as_strided((cnt, rows, cols), (step * (s0 + s1), s0, s1),
+                        M.storage_offset() + r0 * s0 + c0 * s1)
+
+
+def _merge(L, W, scratch, o, cnt, a, c, leaf):
+    """The merges of `cnt` blocks of 2a at o, o + 2a, …: each inverse's
+    lower-left block Wb = Wc·X with X = −B·Wa, from its halves' inverses
+    Wa (a × a) and Wc (c × c, c ≤ a) already in W.  Each product adds
+    one batched GEMM a tile of its triangular operand."""
+    def at(M, r, k, rows, cols):
+        return _blocks(M, o + r, o + k, 2 * a, cnt, rows, cols)
+
+    X = scratch[:cnt * c * a].view(cnt, c, a).zero_()
+    for r0, r1, c0, c1 in _tiles(a, leaf):
+        X[..., c0:c1].baddbmm_(at(L, a, r0, c, r1 - r0), at(W, r0, c0, r1 - r0, c1 - c0),
+                               alpha=-1.0)
+    Wb = at(W, a, 0, c, a)
+    for r0, r1, c0, c1 in _tiles(c, leaf):
+        Wb[..., r0:r1, :].baddbmm_(at(W, a + r0, a + c0, r1 - r0, c1 - c0), X[..., c0:c1, :])
+
+
+def _tiles(t: int, leaf: int, o: int = 0) -> tuple:
+    """The tiles (r0, r1, c0, c1) of a t × t lower triangle at offset o
+    that bisection at `leaf` multiples leaves: the off-diagonal block of
+    each split, then those of its halves, down to the diagonal leaves."""
+    if t <= leaf:
+        return ((o, o + t, o, o + t),)
+    h = leaf * (-(-t // leaf) // 2)
+    return ((o + h, o + t, o, o + h),) + _tiles(h, leaf, o) + _tiles(t - h, leaf, o + h)
 
 
 def spd_inverse_from_chol(L: torch.Tensor) -> torch.Tensor:

@@ -452,6 +452,42 @@ def test_cholesky_kernel_repeats_bitwise(dev):
     assert torch.equal(C.cholesky(K), C.cholesky(K))  # no atomics, fixed order
 
 
+# ------------------------------------------- the blocked triangular inverse
+
+
+def test_blocked_tri_inv_at_the_seed_size(dev):
+    """`tri_inv` at n = 10 240 (main10k's padded seed: RBF, ls 8, noise
+    variance 0.01 on a 128 × 80 grid) takes the blocked path without a
+    host sync and agrees with the f64 solve within 1e-5 · max|W|."""
+    from algp_tpu_torch.ops import linalg as la
+
+    r, c = np.divmod(np.arange(10240), 128)
+    x = torch.tensor(np.stack([c, r], 1), dtype=torch.float32, device=dev)
+    spec = KernelSpec("rbf", ds=2)
+    p = spec.init_params(ls_spatial=8.0, outputscale=1.0, noise=0.1, device=dev)
+    L = la.cholesky(G.gram_kernel_with_noise(spec, p, x))
+    la.tri_inv(L)  # warm
+    before = la.TRI_INV_BLOCKED
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        W = la.tri_inv(L)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.synchronize()
+    print(f"tri_inv n=10240: {start.elapsed_time(end):.2f} ms "
+          f"({torch.cuda.get_device_name(0)})")
+    assert la.TRI_INV_BLOCKED == before + 1
+    assert W.is_contiguous() and (torch.triu(W, 1) == 0).all()
+    L64 = L.double()
+    want = torch.linalg.solve_triangular(L64.mT, torch.eye(10240, dtype=torch.float64,
+                                                           device=dev), upper=True).mT
+    assert (W.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
 # ------------------------------------------------------- the episode
 
 

@@ -32,6 +32,72 @@ def test_tri_inv_matches_reference_and_is_row_major(rng):
     np.testing.assert_allclose(Wn, want, atol=1e-5 * scale)
 
 
+def _factor(rng, n):
+    """The f32 lower factor of a GP-shaped K (f64 Cholesky, then cast)."""
+    return np.linalg.cholesky(_spd(rng, n=n).astype(np.float64)).astype(np.float32)
+
+
+def _check_inverse(L, W):
+    """W = L⁻¹ within today's atol of the f64 inverse, L·W − I small,
+    exact zeros above the diagonal, row-major."""
+    assert W.is_contiguous()  # the precision-column kernel reads rows
+    assert torch.equal(torch.triu(W, 1), torch.zeros_like(W))
+    n = L.shape[0]
+    Wn = W.numpy().astype(np.float64)
+    exact = sla.solve_triangular(L.astype(np.float64), np.eye(n), lower=True)
+    np.testing.assert_allclose(Wn, exact, rtol=0, atol=1e-5 * np.abs(exact).max())
+    assert np.abs(L.astype(np.float64) @ Wn - np.eye(n)).max() < 1e-5
+
+
+@pytest.mark.parametrize("n,leaf", [(1030, None), (2048, None), (300, 64)])
+def test_tri_inv_blocked_matches_f64(rng, n, leaf):
+    """Past 1 024 `tri_inv` inverts by blocks (ragged at 1 030, whole at
+    2 048); the private routine drives the same path at a small leaf."""
+    L = _factor(rng, n)
+    Lt = torch.tensor(L)
+    W = tla.tri_inv(Lt) if leaf is None else tla._tri_inv_blocked(Lt, leaf)
+    _check_inverse(L, W)
+
+
+@pytest.mark.parametrize("n", [224, 512, 1024])
+def test_tri_inv_small_is_the_solve_bitwise(rng, n):
+    """Up to 1 024 (the low-rank seeds' and the capped solves' factors)
+    `tri_inv` is the solve against the identity, bit for bit."""
+    L = torch.tensor(_factor(rng, n))
+    want = torch.linalg.solve_triangular(L.mT, torch.eye(n), upper=True).mT
+    assert torch.equal(tla.tri_inv(L), want)
+
+
+def test_blocked_inverse_of_the_overflowing_factor():
+    """The factor on which the reference's Neumann-doubling leaf overflows
+    (c5_long's first 256 cells at its pilot fit's hyperparameters; see
+    tests/test_torch_quality_parity.py): the blocked inverse is finite and
+    equals the solve within today's atol."""
+    r, c = np.divmod(np.arange(256), 100)
+    x = np.stack([c, r], 1) / np.array([9.16, 6.84])
+    d = np.sqrt(3.0 * ((x[:, None] - x[None]) ** 2).sum(-1))
+    K = 0.80 * (1 + d) * np.exp(-d) + 5.4e-4 * np.eye(256)
+    L = torch.tensor(np.linalg.cholesky(K).astype(np.float32))
+    W = tla._tri_inv_blocked(L, 64)
+    assert torch.isfinite(W).all()
+    want = torch.linalg.solve_triangular(L.mT, torch.eye(256), upper=True).mT
+    np.testing.assert_allclose(W.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("n,blocked", [(512, False), (2048, True)])
+def test_tri_inv_counts_and_marks_the_blocked_path(rng, n, blocked):
+    """`TRI_INV_BLOCKED` counts the blocked inversions, and each is the
+    profiler region `linalg.tri_inv`."""
+    L = torch.tensor(_factor(rng, n))
+    before = tla.TRI_INV_BLOCKED
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tla.tri_inv(L)
+    assert tla.TRI_INV_BLOCKED - before == int(blocked)
+    regions = [e.name for e in prof.events() if e.name == "linalg.tri_inv"]
+    assert len(regions) == int(blocked)
+
+
 def test_cho_solve_and_logdet_match_reference(rng):
     K = _spd(rng, noise=0.3)
     b = rng.standard_normal(120).astype(np.float32)
